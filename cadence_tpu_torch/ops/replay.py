@@ -1,0 +1,233 @@
+"""The batched replay entry points: apply every workflow's events, reduce
+to the canonical payload row, hash it, and compare.
+
+On the GPU the event loop is kernel A (csrc/replay.cu): one thread per
+workflow scans its events and updates its state in place; `replay_scan`
+updates the state in place on the CPU too. On the CPU the loop
+is `replay_scan_plain`, a Python loop of ops/transitions.step over the
+event axis (the JAX package's `lax.scan`). Each entry point has the JAX
+package's signature plus `device`: None means the GPU, and on a machine
+without CUDA that raises rather than running on the CPU; the CPU is used
+only when the caller asks for it (`device="cpu"`).
+
+CRCs are unsigned 32-bit values: int64 tensors holding the unsigned value
+inside torch, np.uint32 at the numpy boundary (`replay_corpus`).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.checksum import DEFAULT_LAYOUT, PayloadLayout
+from ..core.events import HistoryBatch
+from . import _build
+from .crc import crc32_rows
+from .encode import (
+    LANE32_A4_HI,
+    LANE32_TS_HI,
+    LANE_A0,
+    LANE_TIMESTAMP,
+    NUM_LANES,
+    NUM_LANES32,
+    encode_corpus,
+)
+from .payload import payload_rows, payload_rows_narrow
+from .state import ReplayState, init_state, layout_of, leaves, map_state
+from .transitions import step
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the GPU unless the caller names
+    another. Raises when CUDA is asked for (or defaulted to) and absent."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the plain PyTorch version on the CPU")
+    return dev
+
+
+def _lanes(events, dev: torch.device, dtype: torch.dtype, lanes: int) -> torch.Tensor:
+    t = torch.as_tensor(events)
+    if t.dim() != 3 or t.shape[2] != lanes or t.dtype != dtype:
+        raise ValueError(f"events: expected [W, E, {lanes}] {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    return t.to(dev).contiguous()
+
+
+def widen_wire32(ev32: torch.Tensor) -> torch.Tensor:
+    """[.., NUM_LANES32] int32 → [.., NUM_LANES] int64, rebuilding the two
+    wide lanes exactly from their lo/hi halves (encode.to_wire32)."""
+    base = ev32[..., :NUM_LANES].to(torch.int64)
+    lo_ts = ev32[..., LANE_TIMESTAMP].to(torch.int64) & 0xFFFFFFFF
+    ts = (ev32[..., LANE32_TS_HI].to(torch.int64) << 32) | lo_ts
+    lo_a4 = ev32[..., LANE_A0 + 4].to(torch.int64) & 0xFFFFFFFF
+    a4 = (ev32[..., LANE32_A4_HI].to(torch.int64) << 32) | lo_a4
+    base[..., LANE_TIMESTAMP] = ts
+    base[..., LANE_A0 + 4] = a4
+    return base
+
+
+def replay_scan_plain(s0: ReplayState, events: torch.Tensor,
+                      wire32: bool = False) -> ReplayState:
+    """Plain PyTorch version of kernel A: step every workflow through its
+    events [W, E, L] (int64 lanes, or int32 wire32 lanes widened per
+    step). Returns the final state; `s0` is not modified."""
+    s = s0
+    for e in range(events.shape[1]):
+        ev = events[:, e]
+        s = step(s, widen_wire32(ev) if wire32 else ev)
+    return s
+
+
+def replay_scan(s: ReplayState, events: torch.Tensor, wire32: bool = False) -> ReplayState:
+    """Apply events [W, E, L] to state `s`, IN PLACE on either device, and
+    return `s`: kernel A on the GPU; on the CPU the plain version, whose
+    result is copied back into `s`."""
+    dev = s.state.device
+    if events.device != dev:
+        raise ValueError(f"events on {events.device}, state on {dev}")
+    if dev.type == "cpu":
+        out = replay_scan_plain(s, events, wire32)
+        for (_, dst), (_, src) in zip(leaves(s), leaves(out)):
+            dst.copy_(src)
+        return s
+    if dev.type != "cuda":
+        raise ValueError(f"replay: unsupported device {dev}")
+    replay_launch(s, events, wire32)()
+    return s
+
+
+def replay_launch(s: ReplayState, events: torch.Tensor, wire32: bool = False):
+    """Check what kernel A takes and return its launch, a call that runs
+    the kernel on `s` in place (see _build.launcher)."""
+    dev = s.state.device
+    W = s.state.shape[0]
+    lanes, dtype = (NUM_LANES32, torch.int32) if wire32 else (NUM_LANES, torch.int64)
+    _build.require(events, dtype, (W, events.shape[1], lanes), "events", dev)
+    lay = layout_of(s)
+    return _build.launcher(
+        "replay", _build.load().cadence_replay, _build.state_pointer_table(s),
+        events, W, events.shape[1], int(wire32), _build.caps(lay), lay.max_branches,
+        lay.max_version_history_items, _build.stream_of(events))
+
+
+def replay_events(events, layout: PayloadLayout = DEFAULT_LAYOUT,
+                  device=None) -> ReplayState:
+    """Replay packed events [W, E, 18] int64 from a fresh state; returns
+    the final state."""
+    dev = resolve_device(device)
+    ev = _lanes(events, dev, torch.int64, NUM_LANES)
+    return replay_scan(init_state(ev.shape[0], layout, dev), ev)
+
+
+def replay_to_payload(events, layout: PayloadLayout = DEFAULT_LAYOUT,
+                      device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replay and reduce to (canonical payload rows [W, width], error [W])."""
+    s = replay_events(events, layout, device)
+    return payload_rows(s, layout), s.error
+
+
+def replay_events32(events32, layout: PayloadLayout = DEFAULT_LAYOUT,
+                    device=None) -> ReplayState:
+    """Replay wire32-packed events [W, E, 20] int32; the lanes stay int32
+    on the device and are widened per event."""
+    dev = resolve_device(device)
+    ev = _lanes(events32, dev, torch.int32, NUM_LANES32)
+    return replay_scan(init_state(ev.shape[0], layout, dev), ev, wire32=True)
+
+
+def replay_to_crc32(events32, layout: PayloadLayout = DEFAULT_LAYOUT,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wire32 replay reduced to (crc32 [W] int64, error [W])."""
+    s = replay_events32(events32, layout, device)
+    return crc32_rows(payload_rows(s, layout)), s.error
+
+
+def replay_from_state(events, s0: ReplayState, device=None) -> ReplayState:
+    """Replay suffix events [W, E, 18] against a carried state `s0` (whose
+    shapes give the layout); returns the final state. `s0` is copied to
+    `device` and left as it was."""
+    dev = resolve_device(device)
+    ev = _lanes(events, dev, torch.int64, NUM_LANES)
+    s = map_state(lambda t: t.to(dev, copy=True).contiguous(), s0)
+    return replay_scan(s, ev)
+
+
+def replay_from_state_to_payload(events, s0: ReplayState,
+                                 out_layout: PayloadLayout = DEFAULT_LAYOUT,
+                                 device=None):
+    """From-state replay reduced to (final state, payload rows at
+    `out_layout` width, error [W], narrow_overflow [W])."""
+    s = replay_from_state(events, s0, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return s, rows, s.error, ovf
+
+
+def replay_from_state_to_crc(events, s0: ReplayState,
+                             out_layout: PayloadLayout = DEFAULT_LAYOUT,
+                             device=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """From-state replay reduced to (crc32 [W] int64, error [W],
+    narrow_overflow [W])."""
+    s = replay_from_state(events, s0, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return crc32_rows(rows), s.error, ovf
+
+
+def verify_rows_plain(rows: torch.Tensor, expected_rows: torch.Tensor,
+                      branch: torch.Tensor, expected_branch: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel D: [W] bool, row OR branch differs."""
+    row_mismatch = (rows != expected_rows).any(dim=1)
+    return row_mismatch | (branch != expected_branch.to(branch.dtype))
+
+
+def verify_rows(rows, expected_rows, branch, expected_branch,
+                device=None) -> torch.Tensor:
+    """Per-workflow mismatch bit [W] bool: the payload row differs from the
+    expected row, or the device-chosen current branch (int32) differs from
+    the expected one. Kernel D on the GPU, the plain version on the CPU."""
+    dev = resolve_device(device)
+    rows = torch.as_tensor(rows).to(dev).contiguous()
+    expected_rows = torch.as_tensor(expected_rows).to(dev).contiguous()
+    branch = torch.as_tensor(branch).to(dev)
+    expected_branch = torch.as_tensor(expected_branch).to(dev).to(branch.dtype)
+    if dev.type == "cpu":
+        return verify_rows_plain(rows, expected_rows, branch, expected_branch)
+    launch, out = verify_launch(rows, expected_rows, branch, expected_branch)
+    launch()
+    return out
+
+
+def verify_launch(rows, expected_rows, branch, expected_branch):
+    """Check what kernel D takes; return (its launch, the [W] bool output
+    it writes)."""
+    dev = rows.device
+    if rows.dim() != 2:
+        raise ValueError(f"verify_rows: expected [W, width] rows, got {tuple(rows.shape)}")
+    W, width = rows.shape
+    _build.require(rows, torch.int64, (W, width), "rows", dev)
+    _build.require(expected_rows, torch.int64, (W, width), "expected_rows", dev)
+    branch = branch.contiguous()
+    expected_branch = expected_branch.contiguous()
+    _build.require(branch, torch.int32, (W,), "branch", dev)
+    _build.require(expected_branch, torch.int32, (W,), "expected_branch", dev)
+    out = torch.empty((W,), dtype=torch.bool, device=dev)
+    return _build.launcher(
+        "verify_rows", _build.load().cadence_verify_rows, rows, expected_rows, branch,
+        expected_branch, out, W, width, _build.stream_of(rows)), out
+
+
+def replay_corpus(histories: Sequence[Sequence[HistoryBatch]],
+                  layout: PayloadLayout = DEFAULT_LAYOUT,
+                  max_events: int = 0,
+                  device=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host helper: encode histories, replay on `device`, and return
+    (payload_rows, crc32s, errors) as numpy arrays (crc32s as np.uint32,
+    hashed on the device)."""
+    dev = resolve_device(device)
+    events = encode_corpus(histories, max_events)
+    rows, errors = replay_to_payload(events, layout, dev)
+    crcs = crc32_rows(rows)
+    return (rows.cpu().numpy(), crcs.cpu().numpy().astype(np.uint32),
+            errors.cpu().numpy())

@@ -1,0 +1,593 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (cadence_tpu_torch) on one GPU and check it.
+
+    python3 chip_smoke.py            # the full run, on one CUDA card
+    python3 chip_smoke.py --small    # the same phases at a few thousand workflows
+
+Phases, one JSON line each:
+  1. probe: card, power limit, torch and CUDA versions; build the four
+     kernels (csrc/*.cu) from this checkout.
+  2. main path, configuration `suites-16k`: the five corpus suites x 16,384
+     distinct workflows (seed 20260730, target_events 120), generated in a
+     process pool, then replay_corpus(..., device="cuda"), replay_to_crc32 on
+     the wire32 lanes and a verify_rows pass, with every launch count set to 0
+     just before and read just after. Device CRCs and rows are held against
+     the oracle (StateBuilder) on 256 sampled workflows per suite.
+  3. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes (tolerance 0: every value is an integer), timed with CUDA
+     events (median of REPS; only the kernel's launch lies between the
+     events, its checks and arguments made before), beside its bound.
+  4. the paths the suites never reach: the `overflow` suite, continue-as-new
+     chains, divergent branch trees and a lane-level random corpus; kernel A
+     must equal the plain version on every state tensor and the oracle on
+     the valid histories.
+The last lines are the launch counts, the card's name and power limit, the
+per-kernel table, and {"ok": true, "device": {...}}. Any failed check raises:
+the script then exits non-zero and prints no "ok" line. Without CUDA it
+exits non-zero at once.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import statistics
+import subprocess
+import sys
+import time
+import zlib
+
+# H100 SXM published peaks: HBM bytes/s, and the non-tensor-core scalar rate,
+# used for the kernels' integer ALU operations (no integer rate outside the
+# tensor cores is published).
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+SEED = 20260730
+TARGET_EVENTS = 120
+REPS = 5  # timed runs per kernel, after one warm-up; the median is kept
+DEVICE = "cuda"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------------------
+# Host-side corpus generation (a process pool of fresh interpreters)
+# ---------------------------------------------------------------------------
+
+def _oracle_row(batches):
+    """(payload row with sticky 0, current branch) of the oracle's final
+    state, following a continue-as-new chain; None when the payload cannot
+    hold the state (TABLE_OVERFLOW rows)."""
+    from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    sb = StateBuilder()
+    sb.replay_history(batches)
+    ms = sb.new_run_state if sb.new_run_state is not None else sb.ms
+    try:
+        row = payload_row(ms)
+    except OverflowError:
+        return None
+    row[STICKY_ROW_INDEX] = 0
+    return row, ms.version_histories.current_index
+
+
+def _gen_chunk(task):
+    """One pool task: (suite, first index, count, sampled indices) →
+    (histories, {index: (oracle row, branch)})."""
+    from cadence_tpu_torch.gen.corpus import generate_history
+
+    suite, start, count, sample = task
+    hs = [generate_history(suite, SEED, i, TARGET_EVENTS) for i in range(start, start + count)]
+    oracle = {i: _oracle_row(hs[i - start]) for i in sample}
+    return hs, oracle
+
+
+def _gen_chains(task):
+    """Continue-as-new chains: each row is three runs of one suite, packed
+    with encode_chain; the oracle witness is the last run's final state."""
+    from cadence_tpu_torch.gen.corpus import generate_history
+    from cadence_tpu_torch.ops.encode import encode_chain
+
+    suite, start, count, max_events = task
+    lanes, oracle = [], {}
+    for i in range(start, start + count):
+        runs = [generate_history(suite, SEED + r, i, 40) for r in range(3)]
+        lanes.append(encode_chain(runs, max_events))
+        oracle[i] = _oracle_row(runs[-1])
+    return lanes, oracle
+
+
+def _branch_tree(rng: random.Random, i: int):
+    """A divergent version-history tree as tests/test_chain_branch.py builds
+    them: a prefix on branch 0, then some of: a losing suffix persisted
+    VH-only, a winning fork on branch 1, a stale lower fork, a switch back."""
+    from cadence_tpu_torch.core.enums import EventType as ET
+    from cadence_tpu_torch.core.events import HistoryBatch, HistoryEvent
+    from cadence_tpu_torch.gen.corpus import generate_history
+
+    prefix = generate_history("echo_signal", SEED, i, 30)[:rng.randint(1, 3)]
+    v0 = rng.randint(1, 4)
+    for b in prefix:
+        for e in b.events:
+            e.version = v0
+    nid = prefix[-1].events[-1].id + 1
+
+    def signals(first, version, n):
+        return [HistoryBatch(domain_id="d", workflow_id=f"t{i}", run_id="r", events=[
+            HistoryEvent(id=first + k, event_type=ET.WorkflowExecutionSignaled,
+                         version=version, timestamp=1000 + first + k) for k in range(n)])]
+
+    segs = [(prefix, 0, 0, False)]
+    shape = rng.randrange(4)
+    if shape == 0:    # arrival order: losing suffix VH-only, then the winning fork
+        segs += [(signals(nid, v0, 2), 0, 0, True), (signals(nid, v0 + 8, 2), 1, 0, False)]
+    elif shape == 1:  # local continues higher, a stale lower fork arrives late
+        segs += [(signals(nid, v0 + 2, 1), 0, 0, False), (signals(nid, v0 + 1, 1), 1, 0, True)]
+    elif shape == 2:  # fork, then the old branch overtakes again
+        segs += [(signals(nid, v0 + 3, 2), 1, 0, False),
+                 (signals(nid + 2, v0 + 5, 2), 0, 1, False)]
+    else:             # several version bumps on a fork
+        segs += [(signals(nid + k, v0 + 1 + k, 1), 1, 0, False) for k in range(rng.randint(1, 6))]
+    return segs
+
+
+def _gen_trees(task):
+    from cadence_tpu_torch.ops.encode import encode_segments
+
+    start, count, max_events = task
+    rng = random.Random(f"{SEED}:trees:{start}")
+    return [encode_segments(_branch_tree(rng, i), max_events) for i in range(start, start + count)]
+
+
+def _chunks(n: int, size: int):
+    """(first index, count) of each chunk of `size` covering range(n)."""
+    return [(s, min(size, n - s)) for s in range(0, n, size)]
+
+
+def _concat(tasks, parts):
+    """Concatenate the pool's per-task (items, {index: oracle}) results,
+    re-basing each task's indices (task[1] is its first) to the whole."""
+    items, oracle = [], {}
+    for task, (part, orc) in zip(tasks, parts):
+        oracle.update({len(items) + i - task[1]: v for i, v in orc.items()})
+        items.extend(part)
+    return items, oracle
+
+
+def generate(args):
+    """All host corpora, made in one process pool."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from cadence_tpu_torch.gen.corpus import SUITES
+
+    rng = np.random.default_rng(SEED)
+    tasks = []
+    for suite in SUITES:
+        sample = rng.choice(args.per_suite, size=min(256, args.per_suite), replace=False)
+        for start, n in _chunks(args.per_suite, 1024):
+            tasks.append((suite, start, n, sorted(int(i) for i in sample
+                                                  if start <= i < start + n)))
+    otasks = [("overflow", s, n, list(range(s, s + n))) for s, n in _chunks(args.overflow, 1024)]
+    ctasks = [(SUITES[k % len(SUITES)], s, n, 3 * 80)
+              for k, (s, n) in enumerate(_chunks(args.chains, 512))]
+    ttasks = [(s, n, 40) for s, n in _chunks(args.trees, 1024)]
+
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(os.cpu_count()) as pool:
+        pending = [pool.map_async(fn, ts, chunksize=1) for fn, ts in (
+            (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks))]
+        main_parts, over_parts, chain_parts, tree_parts = (p.get() for p in pending)
+    histories, oracle = _concat(tasks, main_parts)
+    over_h, over_oracle = _concat(otasks, over_parts)
+    chain_lanes, chain_oracle = _concat(ctasks, chain_parts)
+    return {
+        "histories": histories, "oracle": oracle,
+        "overflow": over_h, "overflow_oracle": over_oracle,
+        "chains": np.stack(chain_lanes), "chain_oracle": chain_oracle,
+        "trees": np.stack([x for part in tree_parts for x in part]),
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Device helpers
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int = REPS, setup=None, inner: int = 1):
+    """Median milliseconds of `fn` over `reps` timed runs (after one warm-up),
+    each run `inner` back-to-back calls between two CUDA events; `setup()`
+    runs before the first event and its result is `fn`'s argument."""
+    import torch
+
+    def once():
+        arg = setup() if setup else None
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn(arg)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / inner
+
+    once()
+    return statistics.median(once() for _ in range(reps))
+
+
+def states_equal(a, b, what: str) -> None:
+    import torch
+
+    from cadence_tpu_torch.ops.state import leaves
+
+    bad = [n for (n, x), (_, y) in zip(leaves(a), leaves(b))
+           if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
+    if bad:
+        fail(f"{what}: kernel and plain version differ on {bad}")
+
+
+def state_bytes(s) -> int:
+    from cadence_tpu_torch.ops.state import leaves
+
+    return sum(t.numel() * t.element_size() for _, t in leaves(s))
+
+
+def replay_ops(events) -> int:
+    """Integer operations kernel A does on these lanes: a fixed cost per real
+    event (lane reads, version-history update, guards, batch-end) plus a
+    K-wide scan for the event types that look up a table. Counted from the
+    event types this run's data holds, not the most it could need."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.core.enums import EventType as ET
+
+    types = events[:, :, 1].to(torch.int64)
+    real = events[:, :, 0] > 0
+    counts = torch.bincount((types[real] + 1).clamp(0, 43), minlength=44).cpu().numpy()
+    per_type = np.full(44, 80)
+    scans = {ET.ActivityTaskScheduled: L.max_activities, ET.ActivityTaskStarted: L.max_activities,
+             ET.ActivityTaskCompleted: L.max_activities, ET.ActivityTaskFailed: L.max_activities,
+             ET.ActivityTaskTimedOut: L.max_activities, ET.ActivityTaskCanceled: L.max_activities,
+             ET.ActivityTaskCancelRequested: L.max_activities,
+             ET.TimerStarted: L.max_timers, ET.TimerFired: L.max_timers,
+             ET.TimerCanceled: L.max_timers}
+    for t, k in scans.items():
+        per_type[int(t) + 1] += 3 * k
+    return int((counts * per_type).sum())
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip() if out else "nvidia-smi: no output"
+
+
+def nvcc_version() -> str:
+    from cadence_tpu_torch.ops import _build
+
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    return out[-1] if out else "unknown"
+
+
+def check_launches(launches: dict) -> None:
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"main path: kernel {k} was never launched")
+
+
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
+                  library_ms=None, **extra):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms}
+    rec.update(extra)
+    return rec
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--small", action="store_true",
+                   help="run every phase at a few thousand workflows")
+    args = p.parse_args()
+    full = not args.small
+    config = "suites-16k" if full else "small"
+    args.per_suite = 16384 if full else 512
+    args.overflow = 4096 if full else 256
+    args.chains = 2048 if full else 128
+    args.trees = 4096 if full else 256
+    args.lanes_w = 65536 if full else 2048
+    args.lanes_e = 128
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT, crc32_of_rows
+    from cadence_tpu_torch.gen.lanes import random_lanes
+    from cadence_tpu_torch.ops import _build, replay as R
+    from cadence_tpu_torch.ops.crc import crc32_launch, crc32_rows, crc32_rows_plain
+    from cadence_tpu_torch.ops.encode import LANE_BRANCH, LANE_EVENT_ID, encode_corpus, to_wire32
+    from cadence_tpu_torch.ops.payload import (payload_launch, payload_rows, payload_rows_narrow,
+                                               payload_rows_narrow_plain)
+    from cadence_tpu_torch.ops.state import (CAPACITY_ERRORS, init_state, leaves, widen_layout,
+                                             widen_state)
+
+    t_start = time.perf_counter()
+    # --- host corpora first, in a pool of spawned workers
+    corp = generate(args)
+    histories, oracle = corp["histories"], corp["oracle"]
+    emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
+         chains=int(corp["chains"].shape[0]), trees=int(corp["trees"].shape[0]),
+         workers=os.cpu_count(), seconds=corp["seconds"])
+
+    # --- 1. probe and build
+    smi = smi_line()
+    dev = torch.device(DEVICE)
+    name = torch.cuda.get_device_name(0)
+    nvcc = nvcc_version()
+    t0 = time.perf_counter()
+    _build.load()
+    emit("probe", device=name, smi=smi, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
+         capability=list(torch.cuda.get_device_capability(0)),
+         build_seconds=_build.build_seconds, compile_seconds=_build.compile_seconds,
+         load_seconds=time.perf_counter() - t0)
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            print("ptxas:", line.strip(), flush=True)
+
+    # --- 2. the main path (suites-16k)
+    t0 = time.perf_counter()
+    events_np = encode_corpus(histories)          # also the comparison input
+    t_encode = time.perf_counter() - t0
+    wire_np = to_wire32(events_np)
+    W, E = events_np.shape[:2]
+    real = int((events_np[:, :, LANE_EVENT_ID] > 0).sum())
+    if (events_np[:, :, LANE_BRANCH] != 0).any():
+        fail("suite corpora carry a branch lane")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rows, crcs, errors = R.replay_corpus(histories, device=DEVICE)
+    t_corpus = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    crc_w, err_w = R.replay_to_crc32(wire_np, device=DEVICE)
+    s32 = R.replay_events32(wire_np, device=DEVICE)
+    rows32 = payload_rows(s32)
+    mismatch = R.verify_rows(rows32, torch.from_numpy(rows).to(dev), s32.current_branch,
+                             torch.zeros(W, dtype=torch.int32, device=dev), device=DEVICE)
+    mismatch_np = mismatch.cpu().numpy()
+    torch.cuda.synchronize()
+    t_wire = time.perf_counter() - t1
+    main_launches = dict(_build.launches)
+    if (errors != 0).any():
+        fail(f"main path: {int((errors != 0).sum())} rows with errors {np.unique(errors)}")
+    if not np.array_equal(crc_w.cpu().numpy().astype(np.uint32), crcs):
+        fail("main path: wire32 CRCs differ from the int64 path")
+    if not np.array_equal(err_w.cpu().numpy(), errors):
+        fail("main path: wire32 errors differ")
+    if mismatch_np.any():
+        fail(f"main path: verify_rows flags {int(mismatch_np.sum())} rows")
+    bad = []
+    for i, (row, branch) in oracle.items():
+        if (not np.array_equal(rows[i], row) or crcs[i] != crc32_of_rows(row[None])[0]
+                or branch != 0):
+            bad.append(i)
+    if bad:
+        fail(f"main path: {len(bad)} sampled rows differ from the oracle, first {bad[:5]}")
+    zl = np.array([zlib.crc32(r.astype("<i8").tobytes()) for r in rows[:4096]], dtype=np.uint32)
+    if not np.array_equal(zl, crcs[:4096]):
+        fail("main path: device CRCs differ from zlib")
+    check_launches(main_launches)
+    emit("main_path", config=config, workflows=W, max_events=E, real_events=real,
+         oracle_sampled=len(oracle), encode_s=t_encode, replay_corpus_s=t_corpus,
+         wire32_and_verify_s=t_wire, launches=main_launches,
+         lanes_bytes=int(events_np.nbytes), wire32_bytes=int(wire_np.nbytes))
+
+    # --- 3. each kernel against its plain version, at the main path's shapes; timed
+    ev = torch.from_numpy(events_np).to(dev)
+    ev32 = torch.from_numpy(wire_np).to(dev)
+    records = []
+
+    fresh = lambda: init_state(W, DEFAULT_LAYOUT, dev)  # noqa: E731
+    s_k = R.replay_scan(fresh(), ev)
+    s_p = R.replay_scan_plain(fresh(), ev)
+    states_equal(s_k, s_p, "replay int64")
+    s_k32 = R.replay_scan(fresh(), ev32, wire32=True)
+    states_equal(s_k32, s_p, "replay wire32")
+    states_equal(R.replay_scan_plain(fresh(), ev32, wire32=True), s_p, "plain wire32")
+    err_a = max(max_abs_err(x, y) for s in (s_k, s_k32)
+                for (_, x), (_, y) in zip(leaves(s), leaves(s_p)))
+    launch = lambda run: run()  # noqa: E731
+    ms_a = cuda_ms(launch, setup=lambda: R.replay_launch(fresh(), ev))
+    ms_a32 = cuda_ms(launch, setup=lambda: R.replay_launch(fresh(), ev32, wire32=True))
+    ms_ap = cuda_ms(lambda s: R.replay_scan_plain(s, ev), 3, setup=fresh)
+    ms_ap32 = cuda_ms(lambda s: R.replay_scan_plain(s, ev32, wire32=True), 3, setup=fresh)
+    sb = state_bytes(s_k)
+    records.append(kernel_record(
+        "replay", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/transitions.py:154",
+        main_launches["replay"], err_a, ms_a, ms_ap, ev.numel() * 8 + sb, replay_ops(ev),
+        ms_wire32=ms_a32, plain_ms_wire32=ms_ap32,
+        bound_ms_wire32=(ev32.numel() * 4 + sb) / HBM_BYTES_PER_S * 1e3,
+        events_per_s=real / (ms_a / 1e3), events_per_s_wire32=real / (ms_a32 / 1e3),
+        timed=f"median of {REPS} single launches, each on a fresh state; plain: median of 3"))
+    emit("kernel_replay", equal_states=66, max_abs_err=err_a, ms=ms_a, ms_wire32=ms_a32,
+         plain_ms=ms_ap, events_per_s=real / (ms_a / 1e3), device=name, smi=smi)
+
+    # B: base layout, and a 2x-widened state projected to the base layout
+    rows_k, ovf_k = payload_rows_narrow(s_k, DEFAULT_LAYOUT)
+    rows_p, ovf_p = payload_rows_narrow_plain(s_k, DEFAULT_LAYOUT)
+    err_b = max(max_abs_err(rows_k, rows_p), max_abs_err(ovf_k, ovf_p))
+    wide = widen_state(s_k, widen_layout(DEFAULT_LAYOUT, 2))
+    wk, wo = payload_rows_narrow(wide, DEFAULT_LAYOUT)
+    wp, wpo = payload_rows_narrow_plain(wide, DEFAULT_LAYOUT)
+    err_b = max(err_b, max_abs_err(wk, wp), max_abs_err(wo, wpo), max_abs_err(wk, rows_p))
+    if err_b:
+        fail(f"payload kernel differs from its plain version (max abs err {err_b})")
+    ms_b = cuda_ms(launch, setup=lambda: payload_launch(s_k, DEFAULT_LAYOUT)[0], inner=20)
+    ms_bp = cuda_ms(lambda _: payload_rows_narrow_plain(s_k, DEFAULT_LAYOUT))
+    masked = [torch.where(t.occ, ids, torch.full_like(ids, 1 << 62)) for t, ids in (
+        (s_k.timers, s_k.timers.started_id), (s_k.activities, s_k.activities.schedule_id),
+        (s_k.children, s_k.children.initiated_id), (s_k.signals, s_k.signals.initiated_id),
+        (s_k.cancels, s_k.cancels.initiated_id))]
+    ms_sort = cuda_ms(lambda _: [torch.sort(m, dim=1) for m in masked], inner=20)
+    L = DEFAULT_LAYOUT
+    kv, b = L.max_version_history_items, L.max_branches
+    tables = [(L.max_timers, 9), (L.max_activities, 9), (L.max_children, 9),
+              (L.max_signals, 9), (L.max_request_cancels, 9)]
+    b_read = W * (10 * 8 + 4 + 1 + 4 + 4 + 2 * kv * 8 + sum(k * bpk for k, bpk in tables))
+    b_ops = W * sum(3 * k * k for k, _ in tables)
+    records.append(kernel_record(
+        "payload", "cadence_tpu_torch/csrc/payload.cu", "cadence_tpu/ops/payload.py:36",
+        main_launches["payload"], err_b, ms_b, ms_bp, b_read + W * (L.width * 8 + 1), b_ops,
+        yardstick="torch.sort of the five masked ID tables", yardstick_ms=ms_sort))
+    emit("kernel_payload", max_abs_err=err_b, ms=ms_b, plain_ms=ms_bp, torch_sort_ms=ms_sort)
+
+    # C: CRC32 against the plain version and zlib
+    c_k = crc32_rows(rows_k)
+    c_p = crc32_rows_plain(rows_k)
+    err_c = max_abs_err(c_k, c_p)
+    zl = np.array([zlib.crc32(r.astype("<i8").tobytes()) for r in rows_k[:4096].cpu().numpy()])
+    if err_c or not np.array_equal(c_k[:4096].cpu().numpy(), zl):
+        fail(f"crc32 kernel differs from its plain version or zlib (max abs err {err_c})")
+    ms_c = cuda_ms(launch, setup=lambda: crc32_launch(rows_k)[0], inner=20)
+    ms_cp = cuda_ms(lambda _: crc32_rows_plain(rows_k))
+    records.append(kernel_record(
+        "crc32", "cadence_tpu_torch/csrc/crc32.cu", "cadence_tpu/ops/crc.py:50",
+        main_launches["crc32"], err_c, ms_c, ms_cp, W * L.width * 8 + W * 8,
+        W * L.width * 24))
+    emit("kernel_crc32", max_abs_err=err_c, ms=ms_c, plain_ms=ms_cp)
+
+    # D: verify with planted differences
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    exp_rows = rows_k.clone()
+    plant = torch.rand(W, generator=g) < 0.1
+    cols = torch.randint(0, L.width, (W,), generator=g)
+    exp_rows[plant.to(dev), cols.to(dev)[plant.to(dev)]] += 1
+    branch = s_k.current_branch
+    exp_branch = branch.clone()
+    flip = (torch.rand(W, generator=g) < 0.05).to(dev)
+    exp_branch[flip] = 1 - exp_branch[flip]
+    v_k = R.verify_rows(rows_k, exp_rows, branch, exp_branch, device=DEVICE)
+    v_p = R.verify_rows_plain(rows_k, exp_rows, branch, exp_branch)
+    err_d = max_abs_err(v_k, v_p)
+    if err_d or not v_k.any() or v_k.all():
+        fail(f"verify_rows kernel differs from its plain version ({err_d} bits)")
+    ms_d = cuda_ms(launch, setup=lambda: R.verify_launch(rows_k, exp_rows, branch, exp_branch)[0],
+                   inner=20)
+    ms_dp = cuda_ms(lambda _: R.verify_rows_plain(rows_k, exp_rows, branch, exp_branch))
+    records.append(kernel_record(
+        "verify_rows", "cadence_tpu_torch/csrc/verify.cu", "cadence_tpu/ops/replay.py:330",
+        main_launches["verify_rows"], err_d, ms_d, ms_dp, 2 * W * L.width * 8 + 2 * W * 4 + W,
+        W * (L.width + 1), yardstick="(rows != expected).any(1) | (branch != expected_branch)",
+        yardstick_ms=ms_dp))
+    emit("kernel_verify_rows", max_abs_err=err_d, planted=int(v_p.sum()), ms=ms_d, plain_ms=ms_dp)
+    del s_k, s_p, s_k32, wide, ev, ev32
+
+    # --- 4. the paths the suites never reach
+    def both(lanes, what, layout=DEFAULT_LAYOUT):
+        evd = torch.from_numpy(np.ascontiguousarray(lanes)).to(dev)
+        k = R.replay_scan(init_state(evd.shape[0], layout, dev), evd)
+        states_equal(k, R.replay_scan_plain(init_state(evd.shape[0], layout, dev), evd), what)
+        rk, ok = payload_rows_narrow(k, DEFAULT_LAYOUT)
+        rp, op = payload_rows_narrow_plain(k, DEFAULT_LAYOUT)
+        if max_abs_err(rk, rp) or max_abs_err(ok, op):
+            fail(f"{what}: payload kernel differs from its plain version")
+        return k, rk.cpu().numpy()
+
+    def against_oracle(rows_, errs, orc, what):
+        """Rows without an error equal the oracle's; a row the device flags
+        may only carry a capacity error (the oracle has no capacities), and
+        a state the payload cannot hold must be flagged."""
+        n = 0
+        for i, v in orc.items():
+            if errs[i] != 0:
+                if errs[i] not in CAPACITY_ERRORS:
+                    fail(f"{what}: row {i} has error {errs[i]} on a valid history")
+                continue
+            if v is None or not np.array_equal(rows_[i], v[0]):
+                fail(f"{what}: row {i} differs from the oracle")
+            n += 1
+        return n
+
+    over_ev = encode_corpus(corp["overflow"])
+    k, r = both(over_ev, "overflow suite")
+    errs = k.error.cpu().numpy()
+    n_or = against_oracle(r, errs, corp["overflow_oracle"], "overflow suite")
+    if not (errs == 10).any():
+        fail("overflow suite: no TABLE_OVERFLOW row")
+    emit("overflow_suite", workflows=len(errs), table_overflow=int((errs == 10).sum()),
+         oracle_equal=n_or)
+
+    k, r = both(corp["chains"], "continue-as-new chains")
+    errs = k.error.cpu().numpy()
+    n_ch = against_oracle(r, errs, corp["chain_oracle"], "chains")
+    emit("chains", workflows=len(errs), resets=int((corp["chains"][:, :, 17] & 1).sum()),
+         oracle_equal=n_ch)
+
+    k, _ = both(corp["trees"], "branch trees")
+    cb = k.current_branch.cpu().numpy()
+    if not (cb == 1).any() or (k.error.cpu().numpy() != 0).any():
+        fail("branch trees: no branch switch, or an error")
+    emit("branch_trees", workflows=len(cb), switched=int((cb == 1).sum()))
+
+    t0 = time.perf_counter()
+    lanes = random_lanes(args.lanes_w, args.lanes_e, SEED)
+    t_lanes = time.perf_counter() - t0
+    k, _ = both(lanes, "random lanes")
+    both(lanes[: args.lanes_w // 8], "random lanes at 2x", widen_layout(DEFAULT_LAYOUT, 2))
+    half = args.lanes_e // 2
+    carried = R.replay_events(lanes[:, :half], device=DEVICE)
+    states_equal(R.replay_from_state(lanes[:, half:], carried, device=DEVICE), k,
+                 "random lanes from a carried state")
+    codes = np.bincount(k.error.cpu().numpy(), minlength=15).tolist()
+    if 0 in codes[1:15]:
+        fail(f"random lanes: some error code never fired {codes}")
+    emit("random_lanes", workflows=args.lanes_w, events=args.lanes_e, error_codes=codes,
+         gen_seconds=t_lanes)
+
+    # --- the summary lines
+    print(json.dumps({"launches": main_launches}))
+    print(smi)
+    print(json.dumps({"kernels": records, "device": name, "smi": smi,
+                      "config": config,
+                      "total_seconds": time.perf_counter() - t_start}, default=float))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
