@@ -3,8 +3,9 @@
 // Replaces the JAX package's ops/transitions.py `step` (with
 // `table_insert_slot`, `table_match`, `state_transition_valid` and
 // ops/state.py `reset_rows`) and the `lax.scan` loops over it in
-// ops/replay.py (`replay_events`, `replay_from_state`, and
-// `replay_events32` with `widen_wire32`).
+// ops/replay.py (`replay_events`, `replay_from_state`, `replay_events32`
+// with `widen_wire32`, and `replay_wirec` / `replay_wirec_from_state` with
+// ops/wirec.py `decode_step` fused into the loop).
 //
 // Design. One thread per workflow loops over that workflow's E events and
 // updates its ReplayState row in place in device memory, so a fresh
@@ -36,18 +37,29 @@
 //   histories, current_branch) but keeps the error code;
 // - int64 sums wrap (done in uint64_t; signed overflow is undefined).
 //
+// Three event readers, one instantiation each: int64 lanes, wire32 lanes,
+// and wirec. The wirec reader decodes the thread's slab row (B bytes) under
+// a profile passed by value (wirec.cuh), with each DELTA lane's running
+// value carried in a register from the `bases` column the profile names;
+// it decodes EVERY row e < E before the id <= 0 skip, padding rows
+// included, because the JAX decode_step advances its carry on every column
+// and masks only the output.
+//
 // Bound. The work per event is a few dozen integer operations and a
 // K-wide scan of at most one table, so the kernel is bound by memory: the
-// event lanes are read once (144 B/event as int64, 80 B as wire32) and
-// the state (3,602 B per workflow at the default layout) is written once.
+// event lanes are read once (144 B/event as int64, 80 B as wire32, B bytes
+// of slab plus the per-workflow bases and count as wirec) and the state
+// (3,602 B per workflow at the default layout) is written once.
 // Each thread reads its own 144-byte rows, so a warp's loads do not
 // coalesce; a field-major lane and state layout is the later fix.
 #include "state.cuh"
+#include "wirec.cuh"
 
 namespace cadence {
 namespace {
 
 constexpr int NUM_LANES = 18;
+static_assert(NUM_LANES == WIREC_LANES, "wirec decodes every lane");
 constexpr int NUM_LANES32 = 20;
 constexpr int LANE_TIMESTAMP = 3;
 constexpr int LANE_A0 = 7;
@@ -138,9 +150,30 @@ __device__ __forceinline__ int first_free(const uint8_t* occ, int k) {
   return -1;
 }
 
-template <bool WIRE32>
+enum Reader : int { READ_INT64 = 0, READ_WIRE32 = 1, READ_WIREC = 2 };
+
+// The wirec reader: decode one slab row into the 18 lanes. `acc[i]` is
+// lane i's DELTA carry, advanced here, or its TSREL_NZ base. The loop is
+// unrolled, so `acc` stays in registers.
+__device__ __forceinline__ void read_wirec(const uint8_t* row, const WirecProfile& p,
+                                           int64_t* acc, bool real, int64_t* lane) {
+#pragma unroll
+  for (int i = 0; i < NUM_LANES; ++i) {
+    const WirecLane& l = p.lane[i];
+    int64_t v = l.cnst;
+    if (l.kind != KIND_CONST) {
+      const int64_t code = wirec_read_le(row, l.offset, l.width);
+      int64_t unused = 0;
+      v = l.kind == KIND_DELTA ? wirec_lane_value(l, code, acc[i], 0)
+                               : wirec_lane_value(l, code, unused, acc[i]);
+    }
+    lane[i] = real ? v : wirec_pad_value(i);
+  }
+}
+
+template <int READER>
 __device__ __forceinline__ void read_event(const void* events, int64_t row, int64_t* lane) {
-  if (WIRE32) {
+  if constexpr (READER == READ_WIRE32) {
     const int32_t* ev = static_cast<const int32_t*>(events) + row * NUM_LANES32;
 #pragma unroll
     for (int i = 0; i < NUM_LANES; ++i) lane[i] = ev[i];
@@ -315,11 +348,28 @@ __device__ __forceinline__ bool delete_matches(uint8_t* occ, const int64_t* keys
   return found;
 }
 
-template <bool WIRE32>
+// The wirec inputs; unused by the other readers.
+struct WirecArgs {
+  const int64_t* bases;    // [W, K]
+  const int32_t* n_events; // [W]
+  int b, k;                // slab bytes per event, bases columns
+};
+
+template <int READER>
 __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int64_t W,
-                              int64_t E, Caps c) {
+                              int64_t E, Caps c, WirecArgs wa,
+                              const __grid_constant__ WirecProfile prof) {
   const int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (w >= W) return;
+
+  int64_t acc[NUM_LANES];
+  int64_t n_real = 0;
+  if constexpr (READER == READ_WIREC) {
+    n_real = wa.n_events[w];
+#pragma unroll
+    for (int i = 0; i < NUM_LANES; ++i)
+      acc[i] = prof.lane[i].base >= 0 ? wa.bases[w * wa.k + prof.lane[i].base] : 0;
+  }
 
   Scalars r;
   load_scalars(S, w, r);
@@ -331,7 +381,11 @@ __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int6
   for (int64_t e = 0; e < E; ++e) {
     if (r.error != 0) break;  // sticky: nothing later can change the row
     int64_t lane[NUM_LANES];
-    read_event<WIRE32>(events, w * E + e, lane);
+    if constexpr (READER == READ_WIREC)
+      read_wirec(static_cast<const uint8_t*>(events) + (w * E + e) * wa.b, prof, acc,
+                 e < n_real, lane);
+    else
+      read_event<READER>(events, w * E + e, lane);
     const int64_t ev_id = lane[0];
     if (ev_id <= 0) continue;
     const int64_t etype = lane[1];
@@ -700,20 +754,52 @@ __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int6
 }  // namespace
 }  // namespace cadence
 
+namespace {
+
+cadence::StatePtrs state_from(const void* ptr_table) {
+  cadence::StatePtrs S;
+  const uint64_t* table = static_cast<const uint64_t*>(ptr_table);
+  for (int i = 0; i < cadence::NUM_FIELDS; ++i) S.p[i] = reinterpret_cast<void*>(table[i]);
+  return S;
+}
+
+constexpr int REPLAY_THREADS = 128;
+
+}  // namespace
+
 extern "C" int cadence_replay(const void* ptr_table, const void* events, int64_t W, int64_t E,
                               int wire32, const int* caps, int b, int kv, void* stream) {
   using namespace cadence;
-  StatePtrs S;
-  const uint64_t* table = static_cast<const uint64_t*>(ptr_table);
-  for (int i = 0; i < NUM_FIELDS; ++i) S.p[i] = reinterpret_cast<void*>(table[i]);
+  const StatePtrs S = state_from(ptr_table);
   Caps c{caps[0], caps[1], caps[2], caps[3], caps[4], b, kv};
   if (W <= 0) return 0;
-  const int threads = 128;
-  const unsigned blocks = static_cast<unsigned>((W + threads - 1) / threads);
+  const unsigned blocks = static_cast<unsigned>((W + REPLAY_THREADS - 1) / REPLAY_THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const WirecArgs none{nullptr, nullptr, 0, 0};
+  const WirecProfile no_profile{};
   if (wire32)
-    replay_kernel<true><<<blocks, threads, 0, st>>>(S, events, W, E, c);
+    replay_kernel<READ_WIRE32><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c, none,
+                                                                  no_profile);
   else
-    replay_kernel<false><<<blocks, threads, 0, st>>>(S, events, W, E, c);
+    replay_kernel<READ_INT64><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c, none,
+                                                                 no_profile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A's wirec reader: slab [W, E, B] uint8, bases [W, K] int64,
+// n_events [W] int32, and the profile as ops/wirec.py profile_table gives it.
+extern "C" int cadence_replay_wirec(const void* ptr_table, const void* slab, const void* bases,
+                                    const void* n_events, int64_t W, int64_t E, int B, int K,
+                                    const int64_t* profile, const int* caps, int b, int kv,
+                                    void* stream) {
+  using namespace cadence;
+  const StatePtrs S = state_from(ptr_table);
+  Caps c{caps[0], caps[1], caps[2], caps[3], caps[4], b, kv};
+  if (W <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((W + REPLAY_THREADS - 1) / REPLAY_THREADS);
+  const WirecArgs wa{static_cast<const int64_t*>(bases), static_cast<const int32_t*>(n_events),
+                     B, K};
+  replay_kernel<READ_WIREC><<<blocks, REPLAY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      S, slab, W, E, c, wa, wirec_profile_from(profile));
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,6 @@ import functools
 import glob
 import hashlib
 import os
-import shutil
 import subprocess
 import tempfile
 import threading
@@ -57,13 +56,12 @@ def _digest() -> str:
 
 
 def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    from ..device import nvcc_path
+
+    found = nvcc_path()
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
 
 
 def library_path() -> str:
@@ -110,6 +108,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_replay.restype = I
     # state pointer table, events, W, E, lanes-is-wire32, K[5], B, Kv, stream
     lib.cadence_replay.argtypes = [P, P, L, L, I, P, I, I, P]
+    lib.cadence_replay_wirec.restype = I
+    # state pointer table, slab, bases, n_events, W, E, B, K, profile table, K[5], B, Kv, stream
+    lib.cadence_replay_wirec.argtypes = [P, P, P, P, L, L, I, I, P, P, I, I, P]
+    lib.cadence_decode_wirec.restype = I
+    # slab, bases, n_events, out, W, E, B, K, profile table, stream
+    lib.cadence_decode_wirec.argtypes = [P, P, P, P, L, L, I, I, P, P]
     lib.cadence_payload.restype = I
     # state pointer table, rows, overflow, W, K[5], B, Kv, out caps[5], out Kv, width, stream
     lib.cadence_payload.argtypes = [P, P, P, L, P, I, I, P, I, I, P]
@@ -139,7 +143,8 @@ def check(rc: int, what: str) -> None:
 
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
-launches = {"replay": 0, "payload": 0, "crc32": 0, "verify_rows": 0}
+launches = {"replay": 0, "replay_wirec": 0, "payload": 0, "crc32": 0, "verify_rows": 0,
+            "decode_wirec": 0}
 
 
 def reset_launches() -> None:

@@ -13,13 +13,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .state import ReplayState, init_state, leaves, map_state
 
 
-def state_from_numpy(mapping: Mapping[str, np.ndarray], device="cpu") -> ReplayState:
-    """A ReplayState on `device` from {dotted field path: array}. Every
-    field must be present, with the dtype and the trailing shape that the
-    layout implied by the arrays gives."""
+def state_from_numpy(mapping: Mapping[str, np.ndarray], device=None) -> ReplayState:
+    """A ReplayState on `device` (None: the card) from {dotted field path:
+    array}. Every field must be present, with the dtype and the trailing
+    shape that the layout implied by the arrays gives."""
     from ..core.checksum import PayloadLayout
 
     vh = np.asarray(mapping["vh_event_ids"])
@@ -32,6 +33,7 @@ def state_from_numpy(mapping: Mapping[str, np.ndarray], device="cpu") -> ReplayS
         max_signals=np.asarray(mapping["signals.occ"]).shape[1],
     )
     W = vh.shape[0]
+    device = resolve_device(device)
     template = init_state(W, layout, "meta")
     names = [name for name, _ in leaves(template)]
     missing = set(names) - set(mapping)

@@ -5,10 +5,13 @@ On the GPU the event loop is kernel A (csrc/replay.cu): one thread per
 workflow scans its events and updates its state in place; `replay_scan`
 updates the state in place on the CPU too. On the CPU the loop
 is `replay_scan_plain`, a Python loop of ops/transitions.step over the
-event axis (the JAX package's `lax.scan`). Each entry point has the JAX
-package's signature plus `device`: None means the GPU, and on a machine
-without CUDA that raises rather than running on the CPU; the CPU is used
-only when the caller asks for it (`device="cpu"`).
+event axis (the JAX package's `lax.scan`). The wirec entry points do the
+same through `wirec_scan`: kernel A's wirec reader decodes each event in
+the loop; `wirec_scan_plain` runs ops/wirec.decode_step_plain before each
+step. Each entry point has the JAX package's signature plus `device`:
+None means the GPU, and on a machine without CUDA that raises rather than
+running on the CPU; the CPU is used only when the caller asks for it
+(`device="cpu"`).
 
 CRCs are unsigned 32-bit values: int64 tensors holding the unsigned value
 inside torch, np.uint32 at the numpy boundary (`replay_corpus`).
@@ -22,6 +25,7 @@ import torch
 
 from ..core.checksum import DEFAULT_LAYOUT, PayloadLayout
 from ..core.events import HistoryBatch
+from ..device import resolve_device
 from . import _build
 from .crc import crc32_rows
 from .encode import (
@@ -36,16 +40,8 @@ from .encode import (
 from .payload import payload_rows, payload_rows_narrow
 from .state import ReplayState, init_state, layout_of, leaves, map_state
 from .transitions import step
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the GPU unless the caller names
-    another. Raises when CUDA is asked for (or defaulted to) and absent."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
-                           "the plain PyTorch version on the CPU")
-    return dev
+from .wirec import (check_profile, decode_step_plain, delta_base_columns, profile_table,
+                    wirec_inputs)
 
 
 def _lanes(events, dev: torch.device, dtype: torch.dtype, lanes: int) -> torch.Tensor:
@@ -81,6 +77,14 @@ def replay_scan_plain(s0: ReplayState, events: torch.Tensor,
     return s
 
 
+def _copy_into(s: ReplayState, out: ReplayState) -> ReplayState:
+    """Copy every tensor of `out` into `s` (the plain versions' result into
+    the state the in-place entry points were given); returns `s`."""
+    for (_, dst), (_, src) in zip(leaves(s), leaves(out)):
+        dst.copy_(src)
+    return s
+
+
 def replay_scan(s: ReplayState, events: torch.Tensor, wire32: bool = False) -> ReplayState:
     """Apply events [W, E, L] to state `s`, IN PLACE on either device, and
     return `s`: kernel A on the GPU; on the CPU the plain version, whose
@@ -89,10 +93,7 @@ def replay_scan(s: ReplayState, events: torch.Tensor, wire32: bool = False) -> R
     if events.device != dev:
         raise ValueError(f"events on {events.device}, state on {dev}")
     if dev.type == "cpu":
-        out = replay_scan_plain(s, events, wire32)
-        for (_, dst), (_, src) in zip(leaves(s), leaves(out)):
-            dst.copy_(src)
-        return s
+        return _copy_into(s, replay_scan_plain(s, events, wire32))
     if dev.type != "cuda":
         raise ValueError(f"replay: unsupported device {dev}")
     replay_launch(s, events, wire32)()
@@ -171,6 +172,149 @@ def replay_from_state_to_crc(events, s0: ReplayState,
     """From-state replay reduced to (crc32 [W] int64, error [W],
     narrow_overflow [W])."""
     s = replay_from_state(events, s0, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return crc32_rows(rows), s.error, ovf
+
+
+# ---------------------------------------------------------------------------
+# wirec: the compressed lanes, decoded inside the event loop
+# ---------------------------------------------------------------------------
+
+
+def wirec_scan_plain(s0: ReplayState, slab: torch.Tensor, bases: torch.Tensor,
+                     n_events: torch.Tensor, profile) -> ReplayState:
+    """Plain PyTorch version of kernel A's wirec reader: per event column,
+    the JAX package's decode_step then step. The DELTA carry starts from
+    the `bases` columns delta_base_columns names. `s0` is not modified."""
+    cols = list(delta_base_columns(profile))
+    prev = bases[:, cols]
+    s = s0
+    for e in range(slab.shape[1]):
+        ev, prev = decode_step_plain(slab[:, e], prev, bases, n_events, e, profile)
+        s = step(s, ev)
+    return s
+
+
+def wirec_scan(s: ReplayState, slab: torch.Tensor, bases: torch.Tensor,
+               n_events: torch.Tensor, profile) -> ReplayState:
+    """Apply a wirec corpus to state `s` IN PLACE and return `s`: kernel A's
+    wirec reader on the GPU, the plain version on the CPU."""
+    dev = s.state.device
+    for name, t in (("slab", slab), ("bases", bases), ("n_events", n_events)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, state on {dev}")
+    if dev.type == "cpu":
+        return _copy_into(s, wirec_scan_plain(s, slab, bases, n_events, profile))
+    if dev.type != "cuda":
+        raise ValueError(f"replay: unsupported device {dev}")
+    wirec_launch(s, slab, bases, n_events, profile)()
+    return s
+
+
+def wirec_launch(s: ReplayState, slab: torch.Tensor, bases: torch.Tensor,
+                 n_events: torch.Tensor, profile):
+    """Check what kernel A's wirec reader takes and return its launch, a
+    call that runs it on `s` in place (see _build.launcher)."""
+    dev = s.state.device
+    W = s.state.shape[0]
+    if slab.dim() != 3:
+        raise ValueError(f"slab: expected [W, E, B], got {tuple(slab.shape)}")
+    _, E, B = slab.shape
+    K = bases.shape[1] if bases.dim() == 2 else -1
+    _build.require(slab, torch.uint8, (W, E, B), "slab", dev)
+    _build.require(bases, torch.int64, (W, K), "bases", dev)
+    _build.require(n_events, torch.int32, (W,), "n_events", dev)
+    check_profile(tuple(profile), B, K)
+    lay = layout_of(s)
+    return _build.launcher(
+        "replay_wirec", _build.load().cadence_replay_wirec, _build.state_pointer_table(s),
+        slab, bases, n_events, W, E, B, K, profile_table(profile), _build.caps(lay),
+        lay.max_branches, lay.max_version_history_items, _build.stream_of(slab))
+
+
+def replay_wirec(slab, bases, n_events, profile, layout: PayloadLayout = DEFAULT_LAYOUT,
+                 device=None) -> ReplayState:
+    """Replay a wirec corpus (ops/wirec.py: slab [W, E, B] uint8, bases
+    [W, K] int64, n_events [W] int32, its profile) from a fresh state; the
+    lanes are decoded one event at a time inside the loop and never exist
+    as a dense tensor. Returns the final state."""
+    dev = resolve_device(device)
+    slab, bases, n_events = wirec_inputs(slab, bases, n_events, profile, dev)
+    return wirec_scan(init_state(slab.shape[0], layout, dev), slab, bases, n_events, profile)
+
+
+def replay_wirec_to_crc(slab, bases, n_events, profile,
+                        layout: PayloadLayout = DEFAULT_LAYOUT,
+                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wirec replay reduced to (crc32 [W] int64, error [W]): compressed
+    bytes up, 4 bytes per workflow down."""
+    s = replay_wirec(slab, bases, n_events, profile, layout, device)
+    return crc32_rows(payload_rows(s, layout)), s.error
+
+
+def replay_wirec_from_state(slab, bases, n_events, profile, s0: ReplayState,
+                            device=None) -> ReplayState:
+    """From-state replay of a wirec SUFFIX corpus against a carried state
+    `s0` (copied to `device` and left as it was). The suffix packs as a
+    corpus of its own, so its decode starts from its own bases."""
+    dev = resolve_device(device)
+    slab, bases, n_events = wirec_inputs(slab, bases, n_events, profile, dev)
+    s = map_state(lambda t: t.to(dev, copy=True).contiguous(), s0)
+    return wirec_scan(s, slab, bases, n_events, profile)
+
+
+def replay_wirec_from_state_to_payload(slab, bases, n_events, profile, s0: ReplayState,
+                                       out_layout: PayloadLayout = DEFAULT_LAYOUT,
+                                       device=None):
+    """wirec from-state replay reduced to (final state, payload rows at
+    `out_layout` width, error [W], narrow_overflow [W])."""
+    s = replay_wirec_from_state(slab, bases, n_events, profile, s0, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return s, rows, s.error, ovf
+
+
+def replay_wirec_from_state_to_crc(slab, bases, n_events, profile, s0: ReplayState,
+                                   out_layout: PayloadLayout = DEFAULT_LAYOUT,
+                                   device=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """wirec from-state replay reduced to (crc32 [W] int64, error [W],
+    narrow_overflow [W])."""
+    s = replay_wirec_from_state(slab, bases, n_events, profile, s0, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return crc32_rows(rows), s.error, ovf
+
+
+# ---------------------------------------------------------------------------
+# Escalation rungs (engine/ladder.py): a flagged sub-corpus re-replayed at a
+# widened capacity layout, projected back to the base payload width
+# ---------------------------------------------------------------------------
+
+
+def replay_escalated(events, layout: PayloadLayout,
+                     out_layout: PayloadLayout = DEFAULT_LAYOUT, device=None):
+    """One rung: replay [F, E, 18] lanes at the widened `layout`, then
+    project the payload to `out_layout`. Returns (rows [F, out width],
+    error [F], narrow_overflow [F], current_branch [F]); a row is resolved
+    when its error is 0 and its overflow flag unset."""
+    s = replay_events(events, layout, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return rows, s.error, ovf, s.current_branch
+
+
+def replay_escalated_state(events, layout: PayloadLayout,
+                           out_layout: PayloadLayout = DEFAULT_LAYOUT, device=None):
+    """replay_escalated that also returns the widened final state: (state,
+    rows, error, narrow_overflow)."""
+    s = replay_events(events, layout, device)
+    rows, ovf = payload_rows_narrow(s, out_layout)
+    return s, rows, s.error, ovf
+
+
+def replay_wirec_escalated_crc(slab, bases, n_events, profile, layout: PayloadLayout,
+                               out_layout: PayloadLayout = DEFAULT_LAYOUT, device=None):
+    """One rung over a wirec sub-corpus: decode and replay at the widened
+    `layout`, project to `out_layout`, hash. Returns (crc32 [F] int64,
+    error [F], narrow_overflow [F])."""
+    s = replay_wirec(slab, bases, n_events, profile, layout, device)
     rows, ovf = payload_rows_narrow(s, out_layout)
     return crc32_rows(rows), s.error, ovf
 

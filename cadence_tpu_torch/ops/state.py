@@ -29,6 +29,7 @@ import torch
 
 from ..core.checksum import DEFAULT_LAYOUT, PAD, PayloadLayout
 from ..core.enums import EMPTY_EVENT_ID, EMPTY_VERSION, FIRST_EVENT_ID, WorkflowState
+from ..device import resolve_device
 
 I64 = torch.int64
 I32 = torch.int32
@@ -204,10 +205,11 @@ def widen_layout(layout: PayloadLayout, factor: int) -> PayloadLayout:
 
 
 def init_state(num_workflows: int, layout: PayloadLayout = DEFAULT_LAYOUT,
-               device="cpu") -> ReplayState:
+               device=None) -> ReplayState:
     """Fresh state for W workflows, matching the oracle's ExecutionInfo
-    defaults, on `device`."""
+    defaults, on `device` (None: the card, see device.resolve_device)."""
     W = num_workflows
+    device = resolve_device(device)
 
     def full(shape, value, dtype=I64):
         return torch.full(shape, value, dtype=dtype, device=device)

@@ -5,26 +5,43 @@
     python3 chip_smoke.py --small    # the same phases at a few thousand workflows
 
 Phases, one JSON line each:
-  1. probe: card, power limit, torch and CUDA versions; build the four
-     kernels (csrc/*.cu) from this checkout.
+  1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
+     (cadence_tpu_torch/device.py report); build the kernels (csrc/*.cu)
+     from this checkout.
   2. main path, configuration `suites-16k`: the five corpus suites x 16,384
      distinct workflows (seed 20260730, target_events 120), generated in a
      process pool, then replay_corpus(..., device="cuda"), replay_to_crc32 on
-     the wire32 lanes and a verify_rows pass, with every launch count set to 0
-     just before and read just after. Device CRCs and rows are held against
-     the oracle (StateBuilder) on 256 sampled workflows per suite.
+     the wire32 lanes and a verify_rows pass. Device CRCs and rows are held
+     against the oracle (StateBuilder) on 256 sampled workflows per suite.
+     wirec_path: the same lanes through pack_wirec_auto, stage_corpus
+     (page-locked memory, a side stream) and replay_wirec_to_crc, whose CRCs
+     and errors must equal the int64 path's; the host-to-device time of the
+     int64, wire32 and wirec bytes.
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes (tolerance 0: every value is an integer), timed with CUDA
      events (median of REPS; only the kernel's launch lies between the
-     events, its checks and arguments made before), beside its bound.
+     events, its checks and arguments made before), beside its bound:
+     kernel A on int64 and wire32 lanes, A's wirec reader, B, C, D, and
+     kernel E (decode_wirec), which must also give the lanes themselves and,
+     replayed by kernel A, the fused reader's state.
   4. the paths the suites never reach: the `overflow` suite, continue-as-new
-     chains, divergent branch trees and a lane-level random corpus; kernel A
-     must equal the plain version on every state tensor and the oracle on
-     the valid histories.
-The last lines are the launch counts, the card's name and power limit, the
-per-kernel table, and {"ok": true, "device": {...}}. Any failed check raises:
-the script then exits non-zero and prints no "ok" line. Without CUDA it
-exits non-zero at once.
+     chains, divergent branch trees and a lane-level random corpus (also
+     packed as wirec, whole and split into a carried prefix and a suffix);
+     kernel A must equal the plain version on every state tensor and the
+     oracle on the valid histories.
+  5. fallback_ladder, bench.py's `_fallback_suite` configuration: the
+     `overflow` suite x 16,384 (seed 20260730, target_events 120) packed as
+     wirec and replayed, the capacity-flagged rows through
+     EscalationLadder.escalate_wirec, the rest through the oracle; every
+     final CRC must equal the oracle-only arbitration, and the dense
+     `escalate` of the same rows must give the same rows and errors.
+Each driven path (main path, wirec_path, fallback_ladder) runs with every
+launch count set to 0 just before it and read just after, and fails if a
+kernel of that path was never launched. The last lines are the launch
+counts, the card's name and power limit, the per-kernel table, and
+{"ok": true, "device": {...}}. Any failed check raises: the script then
+exits non-zero and prints no "ok" line. Without CUDA it exits non-zero at
+once.
 """
 from __future__ import annotations
 
@@ -47,7 +64,11 @@ SCALAR_OPS_PER_S = 67e12
 SEED = 20260730
 TARGET_EVENTS = 120
 REPS = 5  # timed runs per kernel, after one warm-up; the median is kept
+PLAIN_REPS = 3  # timed runs of a plain replay, which takes a second or more
 DEVICE = "cuda"
+#: the kernels each driven path must launch (ops/_build.launches keys)
+MAIN_PATH_KERNELS = ("replay", "payload", "crc32", "verify_rows")
+WIREC_PATH_KERNELS = ("replay_wirec", "payload", "crc32")
 
 
 def emit(phase: str, **fields) -> None:
@@ -242,7 +263,7 @@ def state_bytes(s) -> int:
     return sum(t.numel() * t.element_size() for _, t in leaves(s))
 
 
-def replay_ops(events) -> int:
+def replay_ops(events, layout=None) -> int:
     """Integer operations kernel A does on these lanes: a fixed cost per real
     event (lane reads, version-history update, guards, batch-end) plus a
     K-wide scan for the event types that look up a table. Counted from the
@@ -250,9 +271,10 @@ def replay_ops(events) -> int:
     import numpy as np
     import torch
 
-    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT
     from cadence_tpu_torch.core.enums import EventType as ET
 
+    L = layout or DEFAULT_LAYOUT
     types = events[:, :, 1].to(torch.int64)
     real = events[:, :, 0] > 0
     counts = torch.bincount((types[real] + 1).clamp(0, 43), minlength=44).cpu().numpy()
@@ -274,18 +296,45 @@ def smi_line() -> str:
     return out[0].strip() if out else "nvidia-smi: no output"
 
 
-def nvcc_version() -> str:
-    from cadence_tpu_torch.ops import _build
+def h2d_ms(NW, arrays, dev, reps: int = 3) -> dict:
+    """Milliseconds of copying `arrays`, first put in page-locked host
+    memory, to the card with native/wirec.stage_h2d (median of `reps`
+    after a warm-up): `host`, the host clock from the call to the end of a
+    synchronise; `device`, CUDA events on the current stream around it (the
+    side stream's copies start after the first and the current stream waits
+    for them before the second)."""
+    import torch
 
-    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
-    return out[-1] if out else "unknown"
+    tensors = [NW.pinned(a) for a in arrays]
+
+    def once():
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        NW.stage_h2d(tensors, dev)
+        b.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, a.elapsed_time(b)
+
+    once()
+    runs = [once() for _ in range(reps)]
+    return {"host": statistics.median(h for h, _ in runs),
+            "device": statistics.median(d for _, d in runs)}
 
 
-def check_launches(launches: dict) -> None:
-    for k, n in launches.items():
-        if n == 0:
-            fail(f"main path: kernel {k} was never launched")
+def decode_ops(profile, rows: int) -> int:
+    """Integer operations of decoding `rows` wirec event rows: a load, a
+    shift and an OR per byte read, a multiply, an add and the padding
+    select per lane (the select alone for a CONST lane)."""
+    return rows * sum(3 * e.width + 3 if e.width else 1 for e in profile)
+
+
+def check_launches(launches: dict, path: str, kernels) -> None:
+    """Fail unless every kernel of `path` launched in its run."""
+    for k in kernels:
+        if launches[k] == 0:
+            fail(f"{path}: kernel {k} was never launched")
 
 
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
@@ -321,7 +370,7 @@ def main() -> int:
     full = not args.small
     config = "suites-16k" if full else "small"
     args.per_suite = 16384 if full else 512
-    args.overflow = 4096 if full else 256
+    args.overflow = 16384 if full else 512
     args.chains = 2048 if full else 128
     args.trees = 4096 if full else 256
     args.lanes_w = 65536 if full else 2048
@@ -334,15 +383,20 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from cadence_tpu_torch import device as D
     from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT, crc32_of_rows
+    from cadence_tpu_torch.engine.ladder import EscalationLadder
     from cadence_tpu_torch.gen.lanes import random_lanes
-    from cadence_tpu_torch.ops import _build, replay as R
+    from cadence_tpu_torch.native import wirec as NW
+    from cadence_tpu_torch.ops import _build, replay as R, wirec as WC
     from cadence_tpu_torch.ops.crc import crc32_launch, crc32_rows, crc32_rows_plain
-    from cadence_tpu_torch.ops.encode import LANE_BRANCH, LANE_EVENT_ID, encode_corpus, to_wire32
+    from cadence_tpu_torch.ops.encode import (LANE_BRANCH, LANE_EVENT_ID, encode_corpus,
+                                              gather_subcorpus, to_wire32)
     from cadence_tpu_torch.ops.payload import (payload_launch, payload_rows, payload_rows_narrow,
                                                payload_rows_narrow_plain)
     from cadence_tpu_torch.ops.state import (CAPACITY_ERRORS, init_state, leaves, widen_layout,
                                              widen_state)
+    from cadence_tpu_torch.utils.metrics import M_NATIVE_PACKS, SCOPE_TPU_NATIVE, MetricsRegistry
 
     t_start = time.perf_counter()
     # --- host corpora first, in a pool of spawned workers
@@ -356,14 +410,10 @@ def main() -> int:
     smi = smi_line()
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
-    nvcc = nvcc_version()
     t0 = time.perf_counter()
     _build.load()
-    emit("probe", device=name, smi=smi, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
-         capability=list(torch.cuda.get_device_capability(0)),
-         build_seconds=_build.build_seconds, compile_seconds=_build.compile_seconds,
-         load_seconds=time.perf_counter() - t0)
+    emit("probe", smi=smi, **D.report(), build_seconds=_build.build_seconds,
+         compile_seconds=_build.compile_seconds, load_seconds=time.perf_counter() - t0)
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             print("ptxas:", line.strip(), flush=True)
@@ -410,16 +460,41 @@ def main() -> int:
     zl = np.array([zlib.crc32(r.astype("<i8").tobytes()) for r in rows[:4096]], dtype=np.uint32)
     if not np.array_equal(zl, crcs[:4096]):
         fail("main path: device CRCs differ from zlib")
-    check_launches(main_launches)
+    check_launches(main_launches, "main path", MAIN_PATH_KERNELS)
     emit("main_path", config=config, workflows=W, max_events=E, real_events=real,
          oracle_sampled=len(oracle), encode_s=t_encode, replay_corpus_s=t_corpus,
          wire32_and_verify_s=t_wire, launches=main_launches,
          lanes_bytes=int(events_np.nbytes), wire32_bytes=int(wire_np.nbytes))
 
+    # --- wirec_path: the same lanes compressed, staged and replayed with the
+    # decode fused into kernel A
+    reg = MetricsRegistry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    wc = NW.pack_wirec_auto(events_np, registry=reg)
+    t_pack = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    crc_c, err_c = R.replay_wirec_to_crc(*NW.stage_corpus(wc, dev), wc.profile, device=DEVICE)
+    crc_c, err_c = crc_c.cpu().numpy().astype(np.uint32), err_c.cpu().numpy()
+    t_wirec = time.perf_counter() - t1
+    wirec_launches = dict(_build.launches)
+    if not np.array_equal(crc_c, crcs) or not np.array_equal(err_c, errors):
+        fail("wirec_path: CRCs or errors differ from the int64 path")
+    check_launches(wirec_launches, "wirec_path", WIREC_PATH_KERNELS)
+    h2d = {fmt: h2d_ms(NW, arrays, dev) for fmt, arrays in (
+        ("int64", [events_np]), ("wire32", [wire_np]),
+        ("wirec", [wc.slab, wc.bases, wc.n_events]))}
+    emit("wirec_path", native_packer=reg.counter(SCOPE_TPU_NATIVE, M_NATIVE_PACKS) == 1,
+         pack_s=t_pack, stage_and_replay_s=t_wirec, wirec_bytes=wc.wire_bytes,
+         bytes_per_event=wc.bytes_per_event(), lanes_bytes_per_event=events_np.nbytes / real,
+         wire32_bytes_per_event=wire_np.nbytes / real, slab_bytes_per_row=int(wc.slab.shape[2]),
+         h2d_ms=h2d, launches=wirec_launches)
+
     # --- 3. each kernel against its plain version, at the main path's shapes; timed
     ev = torch.from_numpy(events_np).to(dev)
     ev32 = torch.from_numpy(wire_np).to(dev)
-    records = []
+    records = []  # "launches" is filled in from the driven paths' counts at the end
 
     fresh = lambda: init_state(W, DEFAULT_LAYOUT, dev)  # noqa: E731
     s_k = R.replay_scan(fresh(), ev)
@@ -438,7 +513,7 @@ def main() -> int:
     sb = state_bytes(s_k)
     records.append(kernel_record(
         "replay", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/transitions.py:154",
-        main_launches["replay"], err_a, ms_a, ms_ap, ev.numel() * 8 + sb, replay_ops(ev),
+        None, err_a, ms_a, ms_ap, ev.numel() * 8 + sb, replay_ops(ev),
         ms_wire32=ms_a32, plain_ms_wire32=ms_ap32,
         bound_ms_wire32=(ev32.numel() * 4 + sb) / HBM_BYTES_PER_S * 1e3,
         events_per_s=real / (ms_a / 1e3), events_per_s_wire32=real / (ms_a32 / 1e3),
@@ -471,7 +546,7 @@ def main() -> int:
     b_ops = W * sum(3 * k * k for k, _ in tables)
     records.append(kernel_record(
         "payload", "cadence_tpu_torch/csrc/payload.cu", "cadence_tpu/ops/payload.py:36",
-        main_launches["payload"], err_b, ms_b, ms_bp, b_read + W * (L.width * 8 + 1), b_ops,
+        None, err_b, ms_b, ms_bp, b_read + W * (L.width * 8 + 1), b_ops,
         yardstick="torch.sort of the five masked ID tables", yardstick_ms=ms_sort))
     emit("kernel_payload", max_abs_err=err_b, ms=ms_b, plain_ms=ms_bp, torch_sort_ms=ms_sort)
 
@@ -486,7 +561,7 @@ def main() -> int:
     ms_cp = cuda_ms(lambda _: crc32_rows_plain(rows_k))
     records.append(kernel_record(
         "crc32", "cadence_tpu_torch/csrc/crc32.cu", "cadence_tpu/ops/crc.py:50",
-        main_launches["crc32"], err_c, ms_c, ms_cp, W * L.width * 8 + W * 8,
+        None, err_c, ms_c, ms_cp, W * L.width * 8 + W * 8,
         W * L.width * 24))
     emit("kernel_crc32", max_abs_err=err_c, ms=ms_c, plain_ms=ms_cp)
 
@@ -510,11 +585,59 @@ def main() -> int:
     ms_dp = cuda_ms(lambda _: R.verify_rows_plain(rows_k, exp_rows, branch, exp_branch))
     records.append(kernel_record(
         "verify_rows", "cadence_tpu_torch/csrc/verify.cu", "cadence_tpu/ops/replay.py:330",
-        main_launches["verify_rows"], err_d, ms_d, ms_dp, 2 * W * L.width * 8 + 2 * W * 4 + W,
+        None, err_d, ms_d, ms_dp, 2 * W * L.width * 8 + 2 * W * 4 + W,
         W * (L.width + 1), yardstick="(rows != expected).any(1) | (branch != expected_branch)",
         yardstick_ms=ms_dp))
     emit("kernel_verify_rows", max_abs_err=err_d, planted=int(v_p.sum()), ms=ms_d, plain_ms=ms_dp)
-    del s_k, s_p, s_k32, wide, ev, ev32
+    # A's wirec reader, on the main path's wirec corpus staged afresh
+    slab_d, bases_d, n_d = NW.stage_corpus(wc, dev)
+    prof = wc.profile
+    s_kw = R.wirec_scan(fresh(), slab_d, bases_d, n_d, prof)
+    s_pw = R.wirec_scan_plain(fresh(), slab_d, bases_d, n_d, prof)
+    states_equal(s_kw, s_pw, "replay wirec")
+    states_equal(s_kw, s_k, "replay wirec against replay int64")
+    err_aw = max(max_abs_err(x, y) for (_, x), (_, y) in zip(leaves(s_kw), leaves(s_pw)))
+    del s_pw
+    half = E // 2
+    carried = R.replay_scan(fresh(), ev[:, :half].contiguous())
+    suffix = NW.pack_wirec_auto(events_np[:, half:], registry=reg)
+    states_equal(R.replay_wirec_from_state(*NW.stage_corpus(suffix, dev), suffix.profile,
+                                           carried, device=DEVICE), s_k,
+                 "replay wirec of the suffix from a carried prefix against replay int64")
+    del carried
+    ms_aw = cuda_ms(launch, setup=lambda: R.wirec_launch(fresh(), slab_d, bases_d, n_d, prof))
+    ms_awp = cuda_ms(lambda s: R.wirec_scan_plain(s, slab_d, bases_d, n_d, prof), PLAIN_REPS,
+                     setup=fresh)
+    wirec_in = slab_d.numel() + bases_d.numel() * 8 + n_d.numel() * 4
+    records.append(kernel_record(
+        "replay_wirec", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/replay.py:121",
+        None, err_aw, ms_aw, ms_awp, wirec_in + sb, replay_ops(ev) + decode_ops(prof, W * E),
+        events_per_s=real / (ms_aw / 1e3), int64_ms=ms_a,
+        timed=f"median of {REPS} single launches, each on a fresh state; "
+              f"plain: median of {PLAIN_REPS}"))
+    emit("kernel_replay_wirec", equal_states=66, max_abs_err=err_aw, ms=ms_aw, plain_ms=ms_awp,
+         int64_ms=ms_a, events_per_s=real / (ms_aw / 1e3),
+         slab_bytes_per_row=int(slab_d.shape[2]))
+
+    # E: the full-tensor decode, against its plain version, the lanes
+    # themselves, and kernel A's fused reader
+    d_k = WC.decode_wirec(slab_d, bases_d, n_d, prof, device=DEVICE)
+    d_p = WC.decode_wirec_plain(slab_d, bases_d, n_d, prof)
+    err_e = max_abs_err(d_k, d_p)
+    if err_e or not torch.equal(d_k, ev):
+        fail(f"decode_wirec kernel differs from its plain version or the lanes ({err_e})")
+    del d_p
+    states_equal(R.replay_scan(fresh(), d_k), s_kw,
+                 "kernel A on kernel E's output against the fused reader")
+    ms_e = cuda_ms(launch, setup=lambda: WC.decode_launch(slab_d, bases_d, n_d, prof)[0],
+                   inner=5)
+    ms_ep = cuda_ms(lambda _: WC.decode_wirec_plain(slab_d, bases_d, n_d, prof))
+    records.append(kernel_record(
+        "decode_wirec", "cadence_tpu_torch/csrc/wirec.cu", "cadence_tpu/ops/wirec.py:355",
+        None, err_e, ms_e, ms_ep, wirec_in + d_k.numel() * 8, decode_ops(prof, W * E),
+        on_main_path=False))
+    emit("kernel_decode_wirec", max_abs_err=err_e, equal_to_lanes=True, ms=ms_e, plain_ms=ms_ep)
+    del s_k, s_p, s_k32, s_kw, wide, ev, ev32, d_k, slab_d, bases_d, n_d
 
     # --- 4. the paths the suites never reach
     def both(lanes, what, layout=DEFAULT_LAYOUT):
@@ -578,8 +701,117 @@ def main() -> int:
     emit("random_lanes", workflows=args.lanes_w, events=args.lanes_e, error_codes=codes,
          gen_seconds=t_lanes)
 
+    # the random lanes as wirec (no-op rows between real ones: the decode
+    # is the JAX package's, not the lanes), whole and as a carried split
+    lw = NW.pack_wirec_auto(lanes, registry=reg)
+    parts = NW.stage_corpus(lw, dev)
+    fresh_l = lambda: init_state(args.lanes_w, DEFAULT_LAYOUT, dev)  # noqa: E731
+    kw = R.wirec_scan(fresh_l(), *parts, lw.profile)
+    states_equal(kw, R.wirec_scan_plain(fresh_l(), *parts, lw.profile), "random lanes as wirec")
+    dk = WC.decode_wirec(*parts, lw.profile, device=DEVICE)
+    if not torch.equal(dk, WC.decode_wirec_plain(*parts, lw.profile)):
+        fail("random lanes: decode_wirec kernel differs from its plain version")
+    states_equal(R.replay_scan(fresh_l(), dk), kw,
+                 "random lanes: kernel A on kernel E's output against the fused reader")
+    sw = NW.pack_wirec_auto(lanes[:, half:], registry=reg)
+    sparts = NW.stage_corpus(sw, dev)
+    states_equal(R.replay_wirec_from_state(*sparts, sw.profile, carried, device=DEVICE),
+                 R.wirec_scan_plain(carried, *sparts, sw.profile),
+                 "random lanes as wirec from a carried state")
+    emit("random_lanes_wirec", workflows=args.lanes_w, slab_bytes_per_row=int(lw.slab.shape[2]),
+         suffix_slab_bytes_per_row=int(sw.slab.shape[2]),
+         errors=int((kw.error != 0).sum()))
+    del kw, dk, parts, sparts, carried, k
+
+    # --- 5. fallback_ladder: bench.py's _fallback_suite on the card
+    over_oracle = corp["overflow_oracle"]
+
+    def oracle_crc(i):
+        v = over_oracle.get(int(i))
+        if v is None:
+            fail(f"fallback_ladder: row {i} has no oracle row at the base layout")
+        return np.uint32(crc32_of_rows(v[0][None])[0])
+
+    lreg = MetricsRegistry()
+    ladder = EscalationLadder(DEFAULT_LAYOUT, registry=lreg, device=DEVICE)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    oc = NW.pack_wirec_auto(over_ev, registry=lreg)
+    crc_o, err_o = R.replay_wirec_to_crc(*NW.stage_corpus(oc, dev), oc.profile, device=DEVICE)
+    crc_o, err_o = crc_o.cpu().numpy().astype(np.uint32), err_o.cpu().numpy()
+    t1 = time.perf_counter()
+    flagged = np.nonzero(err_o != 0)[0]
+    cap = ladder.capacity_flagged(err_o)
+    residual = sorted(set(flagged.tolist()) - set(cap.tolist()))
+    crc_l, resolved, err_l = ladder.escalate_wirec(oc, cap)
+    final = crc_o.copy()
+    final[cap[resolved]] = crc_l[resolved]
+    residual += cap[~resolved].tolist()
+    t2 = time.perf_counter()
+    for i in residual:
+        final[i] = oracle_crc(i)
+    t3 = time.perf_counter()
+    ladder_launches = dict(_build.launches)
+    check_launches(ladder_launches, "fallback_ladder", WIREC_PATH_KERNELS)
+    rungs, counters = list(ladder.last_run), lreg.snapshot()
+    if not len(cap):
+        fail("fallback_ladder: no capacity-flagged row")
+    oracle_only = crc_o.copy()
+    for i in flagged:
+        oracle_only[i] = oracle_crc(i)
+    if not np.array_equal(final, oracle_only):
+        fail(f"fallback_ladder: {int((final != oracle_only).sum())} CRCs differ from the "
+             "oracle-only arbitration")
+    bad = [i for i in np.nonzero(err_o == 0)[0] if crc_o[i] != oracle_crc(i)]
+    if bad:
+        fail(f"fallback_ladder: {len(bad)} unflagged rows differ from the oracle")
+    dense = ladder.escalate(gather_subcorpus(over_ev, cap))
+    if (not np.array_equal(dense.resolved, resolved) or not np.array_equal(dense.errors, err_l)
+            or [r["rows"] for r in dense.rungs] != [r["rows"] for r in rungs]
+            or not np.array_equal(crc32_of_rows(dense.rows[resolved]), crc_l[resolved])):
+        fail("fallback_ladder: the dense ladder differs from the wirec ladder")
+    # row 9's rung timed alone, at the first rung's shapes: kernel A's wirec
+    # reader at the widened layout on the padded sub-corpus, B's narrow
+    # projection to the base layout, C
+    Wp, Ep = ladder._pad_dims(len(cap), int(oc.n_events[cap].max()))
+    sub = WC.gather_corpus(oc, cap, Wp, Ep)
+    rparts = NW.stage_corpus(sub, dev)
+    fresh_r = lambda: init_state(Wp, ladder.rung_layout(1), dev)  # noqa: E731
+    s_r = R.wirec_scan(fresh_r(), *rparts, sub.profile)
+    rows_r, _ = payload_rows_narrow(s_r, DEFAULT_LAYOUT)
+    rung_ms = {
+        "replay_wirec": cuda_ms(launch, setup=lambda: R.wirec_launch(fresh_r(), *rparts,
+                                                                     sub.profile)),
+        "payload": cuda_ms(launch, setup=lambda: payload_launch(s_r, DEFAULT_LAYOUT)[0],
+                           inner=20),
+        "crc32": cuda_ms(launch, setup=lambda: crc32_launch(rows_r)[0], inner=20)}
+    rung_plain_ms = cuda_ms(lambda st: crc32_rows_plain(payload_rows_narrow_plain(
+        R.wirec_scan_plain(st, *rparts, sub.profile), DEFAULT_LAYOUT)[0]), PLAIN_REPS,
+        setup=fresh_r)
+    rung_bytes = sum(t.numel() * t.element_size() for t in rparts) + Wp * (8 + 4 + 1)
+    rung_ops = (replay_ops(WC.decode_wirec_plain(*rparts, sub.profile), ladder.rung_layout(1))
+                + decode_ops(sub.profile, Wp * Ep) + Wp * DEFAULT_LAYOUT.width * 24)
+    rung_bound = max(rung_bytes / HBM_BYTES_PER_S, rung_ops / SCALAR_OPS_PER_S) * 1e3
+    del s_r, rows_r, rparts
+    emit("fallback_ladder", workflows=len(err_o),
+         events=int((over_ev[:, :, LANE_EVENT_ID] > 0).sum()), flagged=len(flagged),
+         capacity_flagged=len(cap), resolved=int(resolved.sum()),
+         residual_oracle_rows=len(residual), oracle_fallback_rate=len(flagged) / len(err_o),
+         rungs=rungs, replay_s=t1 - t0, ladder_s=t2 - t1, oracle_s=t3 - t2, total_s=t3 - t0,
+         crc_parity_oracle_only=True, dense_ladder_equal=True, launches=ladder_launches,
+         counters=counters, rung1_shape=[Wp, Ep], rung1_ms=rung_ms,
+         rung1_kernels_ms=sum(rung_ms.values()), rung1_plain_ms=rung_plain_ms,
+         rung1_bound_ms=rung_bound,
+         rung1_bound_by="bytes" if rung_bytes / HBM_BYTES_PER_S >= rung_ops / SCALAR_OPS_PER_S
+         else "operations")
+
     # --- the summary lines
-    print(json.dumps({"launches": main_launches}))
+    paths = {"main_path": main_launches, "wirec_path": wirec_launches,
+             "fallback_ladder": ladder_launches}
+    for rec in records:
+        rec["launches"] = sum(p[rec["name"]] for p in paths.values())
+    print(json.dumps({"launches": paths}))
     print(smi)
     print(json.dumps({"kernels": records, "device": name, "smi": smi,
                       "config": config,

@@ -38,7 +38,7 @@ def test_payload_rows_narrow(kind, factor):
     layout = widen_layout(DEFAULT_LAYOUT, factor)
     js = j_replay_events(_corpus(kind), layout)
     want_rows, want_ovf = (np.asarray(x) for x in j_narrow(js, DEFAULT_LAYOUT))
-    s = state_from_numpy(jax_state_to_numpy(js))
+    s = state_from_numpy(jax_state_to_numpy(js), device="cpu")
     rows, ovf = payload_rows_narrow(s, DEFAULT_LAYOUT)
     assert rows.dtype == torch.int64 and rows.shape == (64, DEFAULT_LAYOUT.width)
     assert np.array_equal(rows.numpy(), want_rows)
@@ -51,7 +51,7 @@ def test_payload_rows_narrow(kind, factor):
 
 def test_widen_state_projects_to_the_same_rows():
     js = j_replay_events(_corpus("lanes"))
-    s = state_from_numpy(jax_state_to_numpy(js))
+    s = state_from_numpy(jax_state_to_numpy(js), device="cpu")
     wide = widen_state(s, widen_layout(DEFAULT_LAYOUT, 2))
     rows, ovf = payload_rows_narrow(wide, DEFAULT_LAYOUT)
     assert np.array_equal(rows.numpy(), payload_rows(s).numpy())

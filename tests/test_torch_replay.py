@@ -59,7 +59,7 @@ def test_from_state_reductions():
     ev = pad_events(random_lanes(64, 128, 31))
     half = ev.shape[1] // 2
     js0 = jr.replay_events(ev[:, :half], wide)
-    s0 = state_from_numpy(jax_state_to_numpy(js0))
+    s0 = state_from_numpy(jax_state_to_numpy(js0), device="cpu")
     j_s, j_rows, j_err, j_ovf = jr.replay_from_state_to_payload(ev[:, half:], js0)
     s, rows, err, ovf = tr.replay_from_state_to_payload(ev[:, half:], s0, device="cpu")
     assert np.array_equal(rows.numpy(), np.asarray(j_rows))
@@ -89,13 +89,13 @@ def test_verify_rows():
 
 def test_state_round_trip_is_identity():
     s = tr.replay_events(pad_events(random_lanes(32, 128, 2)), device="cpu")
-    back = state_from_numpy(state_to_numpy(s))
+    back = state_from_numpy(state_to_numpy(s), device="cpu")
     for (n1, a), (n2, b) in zip(leaves(s), leaves(back)):
         assert n1 == n2 and a.dtype == b.dtype and torch.equal(a, b)
-    mapping = state_to_numpy(init_state(3))
+    mapping = state_to_numpy(init_state(3, device="cpu"))
     mapping.pop("timers.version")
     with pytest.raises(KeyError):
-        state_from_numpy(mapping)
+        state_from_numpy(mapping, device="cpu")
 
 
 @pytest.mark.parametrize("call", ["replay_events", "replay_events32", "replay_corpus",
@@ -114,7 +114,7 @@ def test_no_device_means_the_card(call, monkeypatch):
         "replay_corpus": (t_corpus.generate_corpus("basic", 2, seed=1, target_events=20),),
         "verify_rows": (np.zeros((2, 3), np.int64), np.zeros((2, 3), np.int64),
                         np.zeros(2, np.int32), np.zeros(2, np.int32)),
-        "replay_from_state": (ev, init_state(2)),
+        "replay_from_state": (ev, init_state(2, device="cpu")),
     }[call]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(tr, call)(*args)
@@ -138,17 +138,17 @@ def test_kernel_field_order_matches_the_state():
         head, _, rest = f.partition("_")
         names.append(f"{prefixes[head]}.{rest.lower()}" if head in prefixes else f.lower())
     assert names == list(_build.STATE_FIELDS)
-    assert names == [n for n, _ in leaves(init_state(1))]
+    assert names == [n for n, _ in leaves(init_state(1, device="cpu"))]
 
 
 def test_replay_scan_updates_the_state_in_place():
     """replay_scan takes one rule on every device: it updates the state it
     is given and returns it. The plain version leaves its input alone."""
     ev = torch.from_numpy(pad_events(random_lanes(W, 64, 5)))
-    s0 = init_state(W)
+    s0 = init_state(W, device="cpu")
     want = tr.replay_scan_plain(s0, ev)
-    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves(s0), leaves(init_state(W))))
-    s = init_state(W)
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves(s0), leaves(init_state(W, device="cpu"))))
+    s = init_state(W, device="cpu")
     assert tr.replay_scan(s, ev) is s
     for (name, x), (_, y) in zip(leaves(s), leaves(want)):
         assert x.dtype == y.dtype and torch.equal(x, y), name
@@ -162,7 +162,7 @@ def test_kernel_state_checks(factor):
     from cadence_tpu_torch.ops.state import widen_layout as t_widen
 
     layout = t_widen(DEFAULT_LAYOUT, factor)
-    s = init_state(3, layout)
+    s = init_state(3, layout, "cpu")
     ref = _build._state_reference(layout)
     assert ref is _build._state_reference(layout)
     assert [(n, t.dtype, tuple(t.shape[1:])) for n, t in leaves(s)] == list(ref)

@@ -49,3 +49,47 @@ def pad_events(ev: np.ndarray, num_events: int = E_PAD, num_workflows: int = 0) 
     out[:, :, 1] = -1
     out[:W, :E] = ev
     return out
+
+
+#: the corpora the wirec tests pack: the five suites, the overflow suite,
+#: the lane-level random corpus (no-op rows between real ones), the
+#: adversarial values of tests/test_wirec.py and all-padding workflows
+WIREC_KINDS = ("basic", "echo_signal", "timer_retry", "concurrent_child", "ndc", "overflow",
+               "lanes", "adversarial", "empty")
+
+
+def wirec_corpus(kind: str, num_workflows: int = 16) -> np.ndarray:
+    """[W, E, 18] int64 lanes of one WIREC_KINDS corpus, made from a seed."""
+    from cadence_tpu.gen.corpus import generate_corpus
+    from cadence_tpu.ops.encode import NUM_LANES, encode_corpus
+    from cadence_tpu_torch.gen.lanes import random_lanes
+
+    if kind == "lanes":
+        return random_lanes(num_workflows, 64, 23)
+    if kind == "adversarial":  # wide random values, negatives, 64-bit magnitudes
+        rng = np.random.default_rng(3)
+        W, E = 8, 32
+        ev = np.zeros((W, E, NUM_LANES), dtype=np.int64)
+        n = rng.integers(5, E, size=W)
+        for w in range(W):
+            ev[w, :n[w], 0] = np.arange(1, n[w] + 1)
+            ev[w, :n[w], 1] = rng.integers(0, 40, n[w])
+            ev[w, :n[w], 3] = rng.integers(-2**62, 2**62, n[w])
+            ev[w, :n[w], 7] = rng.integers(-2**31, 2**31, n[w])
+            ev[w, n[w]:, 1] = -1
+        return ev
+    if kind == "empty":  # all-padding rows beside one short workflow
+        ev = np.zeros((4, 16, NUM_LANES), dtype=np.int64)
+        ev[:, :, 1] = -1
+        ev[0, :3, 0] = [1, 2, 3]
+        ev[0, :3, 1] = [0, 2, 3]
+        return ev
+    return encode_corpus(generate_corpus(kind, num_workflows, seed=9, target_events=80))
+
+
+def assert_corpora_equal(got, want) -> None:
+    """Two WirecCorpus values hold the same profile and the same bytes."""
+    assert tuple(got.profile) == tuple(want.profile)
+    for name in ("slab", "bases", "n_events"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), name
