@@ -38,12 +38,14 @@
 // - int64 sums wrap (done in uint64_t; signed overflow is undefined).
 //
 // Three event readers, one instantiation each: int64 lanes, wire32 lanes,
-// and wirec. The wirec reader decodes the thread's slab row (B bytes) under
-// a profile passed by value (wirec.cuh), with each DELTA lane's running
-// value carried in a register from the `bases` column the profile names;
-// it decodes EVERY row e < E before the id <= 0 skip, padding rows
-// included, because the JAX decode_step advances its carry on every column
-// and masks only the output.
+// and wirec. The int64 and wire32 readers have a second instantiation,
+// TASKS, which also appends each event's transfer and timer tasks to the
+// task logs (taskgen.cuh; cadence_replay_tasks). The wirec reader decodes
+// the thread's slab row (B bytes) under a profile passed by value
+// (wirec.cuh), with each DELTA lane's running value carried in a register
+// from the `bases` column the profile names; it decodes EVERY row e < E
+// before the id <= 0 skip, padding rows included, because the JAX
+// decode_step advances its carry on every column and masks only the output.
 //
 // Bound. The work per event is a few dozen integer operations and a
 // K-wide scan of at most one table, so the kernel is bound by memory: the
@@ -106,7 +108,7 @@ enum : int64_t {
   ET_CHILD_COMPLETED = 33, ET_CHILD_FAILED = 34, ET_CHILD_CANCELED = 35,
   ET_CHILD_TIMED_OUT = 36, ET_CHILD_TERMINATED = 37,
   ET_SG_INITIATED = 38, ET_SG_FAILED = 39, ET_EXT_SIGNALED = 40,
-  ET_LAST = 41,
+  ET_UPSERT_SEARCH_ATTRIBUTES = 41, ET_LAST = 41,
 };
 
 __device__ __forceinline__ int64_t wrap_add(int64_t a, int64_t b) {
@@ -355,12 +357,19 @@ struct WirecArgs {
   int b, k;                // slab bytes per event, bases columns
 };
 
-template <int READER>
+#include "taskgen.cuh"
+
+// TASKS: also emit each event's transfer and timer tasks into the logs `L`
+// (taskgen.cuh); unused otherwise.
+template <int READER, bool TASKS>
 __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int64_t W,
                               int64_t E, Caps c, WirecArgs wa,
-                              const __grid_constant__ WirecProfile prof) {
+                              const __grid_constant__ WirecProfile prof, TaskLogPtrs L) {
   const int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (w >= W) return;
+
+  TaskCursor cur{};
+  if constexpr (TASKS) cur = TaskCursor{L.tr_count[w], L.tm_count[w], L.overflow[w] != 0};
 
   int64_t acc[NUM_LANES];
   int64_t n_real = 0;
@@ -747,8 +756,22 @@ __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int6
       r.last_first_event_id = batch_first;
       r.next_event_id = wrap_add(ev_id, 1);
     }
+
+    // the event's tasks, from the post-step state. Every `continue` above
+    // skips them: each is an id <= 0, an error, or a VH-only event, which
+    // emit nothing; an error set inside the switch suppresses them here.
+    if constexpr (TASKS) {
+      if (r.error == 0)
+        step_tasks(S, w, c, r, L, cur, ev_id, etype, ev_version, ts, batch_last, a[0], a[2],
+                   a[3], a[7]);
+    }
   }
   store_scalars(S, w, r);
+  if constexpr (TASKS) {
+    L.tr_count[w] = cur.tr;
+    L.tm_count[w] = cur.tm;
+    L.overflow[w] = cur.overflow ? 1 : 0;
+  }
 }
 
 }  // namespace
@@ -765,10 +788,10 @@ cadence::StatePtrs state_from(const void* ptr_table) {
 
 constexpr int REPLAY_THREADS = 128;
 
-}  // namespace
-
-extern "C" int cadence_replay(const void* ptr_table, const void* events, int64_t W, int64_t E,
-                              int wire32, const int* caps, int b, int kv, void* stream) {
+// The dense readers' launch, without or with tasks.
+template <bool TASKS>
+int launch_dense(const void* ptr_table, const void* events, int64_t W, int64_t E, int wire32,
+                 const int* caps, int b, int kv, const cadence::TaskLogPtrs& L, void* stream) {
   using namespace cadence;
   const StatePtrs S = state_from(ptr_table);
   Caps c{caps[0], caps[1], caps[2], caps[3], caps[4], b, kv};
@@ -778,12 +801,36 @@ extern "C" int cadence_replay(const void* ptr_table, const void* events, int64_t
   const WirecArgs none{nullptr, nullptr, 0, 0};
   const WirecProfile no_profile{};
   if (wire32)
-    replay_kernel<READ_WIRE32><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c, none,
-                                                                  no_profile);
+    replay_kernel<READ_WIRE32, TASKS><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c,
+                                                                         none, no_profile, L);
   else
-    replay_kernel<READ_INT64><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c, none,
-                                                                 no_profile);
+    replay_kernel<READ_INT64, TASKS><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c,
+                                                                        none, no_profile, L);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int cadence_replay(const void* ptr_table, const void* events, int64_t W, int64_t E,
+                              int wire32, const int* caps, int b, int kv, void* stream) {
+  return launch_dense<false>(ptr_table, events, W, E, wire32, caps, b, kv,
+                             cadence::TaskLogPtrs{}, stream);
+}
+
+// Kernel A with tasks: as cadence_replay, and the transfer and timer task
+// logs, 12 device pointers in ops/taskgen.py TaskLog order ([W, Tt] / [W, Tm]
+// int64 rows, [W] int64 counts, [W] bool overflow), appended to in place.
+// `retention` is retention_days * 86400e9, which the caller checked fits.
+extern "C" int cadence_replay_tasks(const void* ptr_table, const void* log_table,
+                                    const void* events, int64_t W, int64_t E, int wire32,
+                                    const int* caps, int b, int kv, int64_t tt, int64_t tm,
+                                    int64_t retention, void* stream) {
+  const uint64_t* p = static_cast<const uint64_t*>(log_table);
+  auto i64 = [&](int i) { return reinterpret_cast<int64_t*>(p[i]); };
+  const cadence::TaskLogPtrs L{i64(0), i64(1), i64(2), i64(3), i64(4), i64(5),
+                               i64(6), i64(7), i64(8), i64(9), i64(10),
+                               reinterpret_cast<uint8_t*>(p[11]), tt, tm, retention};
+  return launch_dense<true>(ptr_table, events, W, E, wire32, caps, b, kv, L, stream);
 }
 
 // Kernel A's wirec reader: slab [W, E, B] uint8, bases [W, K] int64,
@@ -799,7 +846,8 @@ extern "C" int cadence_replay_wirec(const void* ptr_table, const void* slab, con
   const unsigned blocks = static_cast<unsigned>((W + REPLAY_THREADS - 1) / REPLAY_THREADS);
   const WirecArgs wa{static_cast<const int64_t*>(bases), static_cast<const int32_t*>(n_events),
                      B, K};
-  replay_kernel<READ_WIREC><<<blocks, REPLAY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      S, slab, W, E, c, wa, wirec_profile_from(profile));
+  replay_kernel<READ_WIREC, false>
+      <<<blocks, REPLAY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          S, slab, W, E, c, wa, wirec_profile_from(profile), TaskLogPtrs{});
   return static_cast<int>(cudaGetLastError());
 }

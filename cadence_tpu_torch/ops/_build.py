@@ -108,6 +108,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_replay.restype = I
     # state pointer table, events, W, E, lanes-is-wire32, K[5], B, Kv, stream
     lib.cadence_replay.argtypes = [P, P, L, L, I, P, I, I, P]
+    lib.cadence_replay_tasks.restype = I
+    # state pointer table, task-log pointer table, events, W, E, lanes-is-wire32, K[5], B, Kv,
+    # Tt, Tm, retention nanos, stream
+    lib.cadence_replay_tasks.argtypes = [P, P, P, L, L, I, P, I, I, L, L, L, P]
     lib.cadence_replay_wirec.restype = I
     # state pointer table, slab, bases, n_events, W, E, B, K, profile table, K[5], B, Kv, stream
     lib.cadence_replay_wirec.argtypes = [P, P, P, P, L, L, I, I, P, P, I, I, P]
@@ -143,8 +147,8 @@ def check(rc: int, what: str) -> None:
 
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
-launches = {"replay": 0, "replay_wirec": 0, "payload": 0, "crc32": 0, "verify_rows": 0,
-            "decode_wirec": 0}
+launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "payload": 0, "crc32": 0,
+            "verify_rows": 0, "decode_wirec": 0}
 
 
 def reset_launches() -> None:

@@ -18,6 +18,7 @@ inside torch, np.uint32 at the numpy boundary (`replay_corpus`).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -39,6 +40,7 @@ from .encode import (
 )
 from .payload import payload_rows, payload_rows_narrow
 from .state import ReplayState, init_state, layout_of, leaves, map_state
+from .taskgen import TaskLog, field_spec, init_task_log, retention_nanos, step_tasks
 from .transitions import step
 from .wirec import (check_profile, decode_step_plain, delta_base_columns, profile_table,
                     wirec_inputs)
@@ -174,6 +176,85 @@ def replay_from_state_to_crc(events, s0: ReplayState,
     s = replay_from_state(events, s0, device)
     rows, ovf = payload_rows_narrow(s, out_layout)
     return crc32_rows(rows), s.error, ovf
+
+
+# ---------------------------------------------------------------------------
+# Task-emitting replay: kernel A's TASKS variant (csrc/taskgen.cuh)
+# ---------------------------------------------------------------------------
+
+
+def replay_tasks_scan_plain(s0: ReplayState, log0: TaskLog, events: torch.Tensor,
+                            wire32: bool = False,
+                            retention_days: int = 1) -> Tuple[ReplayState, TaskLog]:
+    """Plain PyTorch version of kernel A with tasks: per event column,
+    ops/transitions.step then ops/taskgen.step_tasks on the post-step
+    state. Returns (state, log); `s0` and `log0` are not modified."""
+    s, log = s0, log0
+    for e in range(events.shape[1]):
+        ev = widen_wire32(events[:, e]) if wire32 else events[:, e]
+        s = step(s, ev)
+        s, log = step_tasks(s, ev, log, retention_days)
+    return s, log
+
+
+def replay_tasks_scan(s: ReplayState, log: TaskLog, events: torch.Tensor, wire32: bool = False,
+                      retention_days: int = 1) -> Tuple[ReplayState, TaskLog]:
+    """Apply events [W, E, L] to state `s` and append their tasks to `log`,
+    both IN PLACE on either device, and return (s, log): kernel A with
+    tasks on the GPU; on the CPU the plain version, whose results are
+    copied back into `s` and `log`."""
+    dev = s.state.device
+    for name, t in (("events", events), ("log", log.tr_count)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, state on {dev}")
+    if dev.type == "cpu":
+        s_out, log_out = replay_tasks_scan_plain(s, log, events, wire32, retention_days)
+        for dst, src in zip(log, log_out):
+            dst.copy_(src)
+        return _copy_into(s, s_out), log
+    if dev.type != "cuda":
+        raise ValueError(f"replay: unsupported device {dev}")
+    replay_tasks_launch(s, log, events, wire32, retention_days)()
+    return s, log
+
+
+def replay_tasks_launch(s: ReplayState, log: TaskLog, events: torch.Tensor,
+                        wire32: bool = False, retention_days: int = 1):
+    """Check what kernel A with tasks takes and return its launch, a call
+    that runs it on `s` and `log` in place (see _build.launcher)."""
+    retention = retention_nanos(retention_days)
+    dev = s.state.device
+    W = s.state.shape[0]
+    lanes, dtype = (NUM_LANES32, torch.int32) if wire32 else (NUM_LANES, torch.int64)
+    _build.require(events, dtype, (W, events.shape[1], lanes), "events", dev)
+    Tt, Tm = log.tr_type.shape[-1], log.tm_type.shape[-1]
+    for name, t in zip(TaskLog._fields, log):
+        _build.require(t, *field_spec(name, W, Tt, Tm), f"log.{name}", dev)
+    lay = layout_of(s)
+    launch = _build.launcher(
+        "replay_tasks", _build.load().cadence_replay_tasks, _build.state_pointer_table(s),
+        (ctypes.c_uint64 * len(log))(*(t.data_ptr() for t in log)), events, W,
+        events.shape[1], int(wire32), _build.caps(lay), lay.max_branches,
+        lay.max_version_history_items, Tt, Tm, retention, _build.stream_of(events))
+    launch.outputs = (s, log)  # the tensors the pointer tables point into
+    return launch
+
+
+def replay_events_with_tasks(events, layout: PayloadLayout = DEFAULT_LAYOUT,
+                             max_transfer: int = 128, max_timer: int = 128,
+                             retention_days: int = 1,
+                             device=None) -> Tuple[ReplayState, TaskLog]:
+    """Replay packed events [W, E, 18] int64 from a fresh state with task
+    generation: returns (final state, TaskLog). The task-emitting variant
+    of replay_events, the full stateBuilder analogue: the state also
+    feeds the transfer and timer queues."""
+    retention_nanos(retention_days)  # raise before any work, as the JAX package does
+    dev = resolve_device(device)
+    ev = _lanes(events, dev, torch.int64, NUM_LANES)
+    W = ev.shape[0]
+    return replay_tasks_scan(init_state(W, layout, dev),
+                             init_task_log(W, max_transfer, max_timer, dev), ev,
+                             retention_days=retention_days)
 
 
 # ---------------------------------------------------------------------------

@@ -21,23 +21,37 @@ Phases, one JSON line each:
      path's shapes (tolerance 0: every value is an integer), timed with CUDA
      events (median of REPS; only the kernel's launch lies between the
      events, its checks and arguments made before), beside its bound:
-     kernel A on int64 and wire32 lanes, A's wirec reader, B, C, D, and
-     kernel E (decode_wirec), which must also give the lanes themselves and,
+     kernel A on int64 and wire32 lanes, kernel A with tasks
+     (kernel_replay_tasks: every state tensor and all 12 task-log tensors
+     against replay_tasks_scan_plain, the state against kernel A's outside
+     the timer-created bits, the task streams against the oracle's on the
+     sampled workflows, no overflow at 128/128 and the plain version's
+     overflow rows at 4/4), A's wirec reader, B, C, D, and kernel E
+     (decode_wirec), which must also give the lanes themselves and,
      replayed by kernel A, the fused reader's state.
   4. the paths the suites never reach: the `overflow` suite, continue-as-new
      chains, divergent branch trees and a lane-level random corpus (also
      packed as wirec, whole and split into a carried prefix and a suffix);
      kernel A must equal the plain version on every state tensor and the
-     oracle on the valid histories.
+     oracle on the valid histories, and kernel A with tasks its plain
+     version on every state and task-log tensor.
   5. fallback_ladder, bench.py's `_fallback_suite` configuration: the
      `overflow` suite x 16,384 (seed 20260730, target_events 120) packed as
      wirec and replayed, the capacity-flagged rows through
      EscalationLadder.escalate_wirec, the rest through the oracle; every
      final CRC must equal the oracle-only arbitration, and the dense
      `escalate` of the same rows must give the same rows and errors.
-Each driven path (main path, wirec_path, fallback_ladder) runs with every
-launch count set to 0 just before it and read just after, and fails if a
-kernel of that path was never launched. The last lines are the launch
+  6. rebuild_path: DeviceRebuilder(device="cuda").rebuild over the same
+     16,384 overflow jobs (a recovery storm of one shard's workflows):
+     chunks of task-emitting replay and payload rows through the bulk
+     executor, the capacity-flagged jobs through the ladder's
+     escalate_states, then hydration; every rebuilt state's payload row
+     must equal the oracle's, every job rebuilt on the card and the
+     flagged ones by the ladder, none by the oracle. Prints each leg's
+     seconds and jobs/s.
+Each driven path (main path, wirec_path, fallback_ladder, rebuild_path)
+runs with every launch count set to 0 just before it and read just after,
+and fails if a kernel of that path was never launched. The last lines are the launch
 counts, the card's name and power limit, the per-kernel table, and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no "ok" line. Without CUDA it exits non-zero at
@@ -69,6 +83,7 @@ DEVICE = "cuda"
 #: the kernels each driven path must launch (ops/_build.launches keys)
 MAIN_PATH_KERNELS = ("replay", "payload", "crc32", "verify_rows")
 WIREC_PATH_KERNELS = ("replay_wirec", "payload", "crc32")
+REBUILD_PATH_KERNELS = ("replay_tasks", "payload", "replay")
 
 
 def emit(phase: str, **fields) -> None:
@@ -101,14 +116,27 @@ def _oracle_row(batches):
     return row, ms.version_histories.current_index
 
 
+def _oracle_tasks(batches):
+    """The oracle's (transfer, timer) task streams, as tuples of the
+    numeric fields a TaskLog holds."""
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    ms = StateBuilder().replay_history(batches)
+    return ([(int(t.task_type), t.version, t.event_id) for t in ms.transfer_tasks],
+            [(int(t.task_type), t.version, t.visibility_timestamp, t.event_id,
+              int(t.timeout_type), t.attempt) for t in ms.timer_tasks])
+
+
 def _gen_chunk(task):
-    """One pool task: (suite, first index, count, sampled indices) →
-    (histories, {index: (oracle row, branch)})."""
+    """One pool task: (suite, first index, count, sampled indices, with
+    task streams) → (histories, {index: (oracle row, branch[, streams])})."""
     from cadence_tpu_torch.gen.corpus import generate_history
 
-    suite, start, count, sample = task
+    suite, start, count, sample, with_tasks = task
     hs = [generate_history(suite, SEED, i, TARGET_EVENTS) for i in range(start, start + count)]
-    oracle = {i: _oracle_row(hs[i - start]) for i in sample}
+    oracle = {i: _oracle_row(hs[i - start]) + ((_oracle_tasks(hs[i - start]),)
+                                               if with_tasks else ())
+              for i in sample}
     return hs, oracle
 
 
@@ -198,8 +226,9 @@ def generate(args):
         sample = rng.choice(args.per_suite, size=min(256, args.per_suite), replace=False)
         for start, n in _chunks(args.per_suite, 1024):
             tasks.append((suite, start, n, sorted(int(i) for i in sample
-                                                  if start <= i < start + n)))
-    otasks = [("overflow", s, n, list(range(s, s + n))) for s, n in _chunks(args.overflow, 1024)]
+                                                  if start <= i < start + n), True))
+    otasks = [("overflow", s, n, list(range(s, s + n)), False)
+              for s, n in _chunks(args.overflow, 1024)]
     ctasks = [(SUITES[k % len(SUITES)], s, n, 3 * 80)
               for k, (s, n) in enumerate(_chunks(args.chains, 512))]
     ttasks = [(s, n, 40) for s, n in _chunks(args.trees, 1024)]
@@ -255,6 +284,63 @@ def states_equal(a, b, what: str) -> None:
            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
     if bad:
         fail(f"{what}: kernel and plain version differ on {bad}")
+
+
+def logs_equal(a, b, what: str) -> None:
+    import torch
+
+    bad = [f for f, x, y in zip(a._fields, a, b)
+           if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
+    if bad:
+        fail(f"{what}: kernel and plain version differ on task-log fields {bad}")
+
+
+def log_streams(log, w: int):
+    """Workflow w's task streams from a TaskLog of numpy arrays, in the
+    oracle's tuple form (_oracle_tasks)."""
+    tr = [(int(log["tr_type"][w, i]), int(log["tr_version"][w, i]),
+           int(log["tr_event_id"][w, i])) for i in range(int(log["tr_count"][w]))]
+    tm = [tuple(int(log[f][w, i]) for f in ("tm_type", "tm_version", "tm_vis", "tm_event_id",
+                                             "tm_timeout_type", "tm_attempt"))
+          for i in range(int(log["tm_count"][w]))]
+    return tr, tm
+
+
+def task_bytes_ops(events, log):
+    """What task emission adds to kernel A's work on these lanes: the
+    entries this run emitted, each written once (24 B a transfer, 48 B a
+    timer), with the counts and overflow flags; as operations, a dozen per
+    entry and a K-wide slot walk of the activity and timer tables at each
+    applied batch-end event."""
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+
+    n_tr, n_tm = int(log.tr_count.sum()), int(log.tm_count.sum())
+    W = log.tr_count.shape[0]
+    ends = int(((events[:, :, 0] > 0) & (events[:, :, 6] == 1)).sum())
+    nbytes = n_tr * 24 + n_tm * 48 + W * (8 + 8 + 1)
+    ops = 12 * (n_tr + n_tm) + ends * (3 * L.max_activities + 2 * L.max_timers + 30)
+    return nbytes, ops
+
+
+def ptxas_usage(build_log: str, kernel: str) -> dict:
+    """Registers and spill bytes nvcc reported for the kernel whose mangled
+    name contains `kernel`."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            out = {}
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "registers" in nxt:
+                    out["registers"] = int(nxt.split("Used ")[1].split(" registers")[0])
+                if "spill" in nxt:
+                    out["spill_store_bytes"] = int(nxt.split(" bytes spill stores")[0]
+                                                   .split(",")[-1])
+                    out["spill_load_bytes"] = int(nxt.split(" bytes spill loads")[0]
+                                                  .split(",")[-1])
+            return out
+    return {}
 
 
 def state_bytes(s) -> int:
@@ -394,8 +480,10 @@ def main() -> int:
                                               gather_subcorpus, to_wire32)
     from cadence_tpu_torch.ops.payload import (payload_launch, payload_rows, payload_rows_narrow,
                                                payload_rows_narrow_plain)
+    from cadence_tpu_torch.ops.convert import task_log_to_numpy
     from cadence_tpu_torch.ops.state import (CAPACITY_ERRORS, init_state, leaves, widen_layout,
                                              widen_state)
+    from cadence_tpu_torch.ops.taskgen import init_task_log
     from cadence_tpu_torch.utils.metrics import M_NATIVE_PACKS, SCOPE_TPU_NATIVE, MetricsRegistry
 
     t_start = time.perf_counter()
@@ -451,7 +539,7 @@ def main() -> int:
     if mismatch_np.any():
         fail(f"main path: verify_rows flags {int(mismatch_np.sum())} rows")
     bad = []
-    for i, (row, branch) in oracle.items():
+    for i, (row, branch, _) in oracle.items():
         if (not np.array_equal(rows[i], row) or crcs[i] != crc32_of_rows(row[None])[0]
                 or branch != 0):
             bad.append(i)
@@ -520,6 +608,61 @@ def main() -> int:
         timed=f"median of {REPS} single launches, each on a fresh state; plain: median of 3"))
     emit("kernel_replay", equal_states=66, max_abs_err=err_a, ms=ms_a, ms_wire32=ms_a32,
          plain_ms=ms_ap, events_per_s=real / (ms_a / 1e3), device=name, smi=smi)
+
+    # A with tasks: kernel A's TASKS variant against its plain version, the
+    # oracle's task streams, and kernel A without tasks
+    fresh_log = lambda cap=128: init_task_log(W, cap, cap, dev)  # noqa: E731
+    s_t, log_t = R.replay_tasks_scan(fresh(), fresh_log(), ev)
+    s_tp, log_tp = R.replay_tasks_scan_plain(fresh(), fresh_log(), ev)
+    states_equal(s_t, s_tp, "replay with tasks")
+    logs_equal(log_t, log_tp, "replay with tasks")
+    pairs = [(x, y) for (_, x), (_, y) in zip(leaves(s_t), leaves(s_tp))]
+    err_t = max(max_abs_err(x, y) for x, y in pairs + list(zip(log_t, log_tp)))
+    s_t32, log_t32 = R.replay_tasks_scan(fresh(), fresh_log(), ev32, wire32=True)
+    states_equal(s_t32, s_t, "replay with tasks, wire32 lanes against int64 lanes")
+    logs_equal(log_t32, log_t, "replay with tasks, wire32 lanes against int64 lanes")
+    del s_t32, log_t32
+    timer_bits = {"activities.timer_status", "timers.task_status"}
+    differ = {n for (n, x), (_, y) in zip(leaves(s_t), leaves(s_k)) if not torch.equal(x, y)}
+    if not differ <= timer_bits:
+        fail(f"replay with tasks: state differs from kernel A's outside the timer bits: {differ}")
+    if bool(log_t.overflow.any()):
+        fail(f"replay with tasks: {int(log_t.overflow.sum())} rows overflow at 128/128")
+    log_np = task_log_to_numpy(log_t)
+    bad = [i for i, (_, _, streams) in oracle.items() if log_streams(log_np, i) != streams]
+    if bad:
+        fail(f"replay with tasks: {len(bad)} sampled task streams differ from the oracle, "
+             f"first {bad[:5]}")
+    s4, log4 = R.replay_tasks_scan(fresh(), fresh_log(4), ev)
+    s4p, log4p = R.replay_tasks_scan_plain(fresh(), fresh_log(4), ev)
+    states_equal(s4, s4p, "replay with tasks at 4/4")
+    logs_equal(log4, log4p, "replay with tasks at 4/4")
+    overflow_at_4 = int(log4.overflow.sum())
+    if not overflow_at_4:
+        fail("replay with tasks at 4/4: no row overflows")
+    del s_tp, log_tp, pairs, s4, log4, s4p, log4p
+    ms_t = cuda_ms(launch, setup=lambda: R.replay_tasks_launch(fresh(), fresh_log(), ev))
+    ms_tp = cuda_ms(lambda a: R.replay_tasks_scan_plain(a[0], a[1], ev), PLAIN_REPS,
+                    setup=lambda: (fresh(), fresh_log()))
+    ms_fill = cuda_ms(lambda _: fresh_log(), inner=5)
+    t_bytes, t_ops = task_bytes_ops(ev, log_t)
+    log_bytes = sum(t.numel() * t.element_size() for t in log_t)
+    regs = ptxas_usage(_build.build_log, "replay_kernelILi0ELb1E")
+    records.append(kernel_record(
+        "replay_tasks", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/taskgen.py:221",
+        None, err_t, ms_t, ms_tp, ev.numel() * 8 + sb + t_bytes, replay_ops(ev) + t_ops,
+        hook="cadence_tpu_torch/csrc/taskgen.cuh", no_tasks_ms=ms_a,
+        init_task_log_ms=ms_fill, init_task_log_bound_ms=log_bytes / HBM_BYTES_PER_S * 1e3,
+        transfer_entries=int(log_t.tr_count.sum()), timer_entries=int(log_t.tm_count.sum()),
+        ptxas=regs, ptxas_no_tasks=ptxas_usage(_build.build_log, "replay_kernelILi0ELb0E"),
+        timed=f"median of {REPS} single launches, each on a fresh state and log; "
+              f"plain: median of {PLAIN_REPS}"))
+    emit("kernel_replay_tasks", equal_states=66, equal_log_tensors=12, wire32_equal=True,
+         max_abs_err=err_t, ms=ms_t, no_tasks_ms=ms_a, plain_ms=ms_tp, init_task_log_ms=ms_fill,
+         oracle_streams_equal=len(oracle), state_differs_from_kernel_a_in=sorted(differ),
+         transfer_entries=int(log_t.tr_count.sum()), timer_entries=int(log_t.tm_count.sum()),
+         overflow_rows_at_4=overflow_at_4, ptxas=regs)
+    del s_t, log_t, log_np
 
     # B: base layout, and a 2x-widened state projected to the base layout
     rows_k, ovf_k = payload_rows_narrow(s_k, DEFAULT_LAYOUT)
@@ -640,14 +783,28 @@ def main() -> int:
     del s_k, s_p, s_k32, s_kw, wide, ev, ev32, d_k, slab_d, bases_d, n_d
 
     # --- 4. the paths the suites never reach
+    task_checks = {}
+
     def both(lanes, what, layout=DEFAULT_LAYOUT):
+        """Kernel A, kernel A with tasks and kernel B against their plain
+        versions on these lanes."""
         evd = torch.from_numpy(np.ascontiguousarray(lanes)).to(dev)
-        k = R.replay_scan(init_state(evd.shape[0], layout, dev), evd)
-        states_equal(k, R.replay_scan_plain(init_state(evd.shape[0], layout, dev), evd), what)
+        Wl = evd.shape[0]
+        k = R.replay_scan(init_state(Wl, layout, dev), evd)
+        states_equal(k, R.replay_scan_plain(init_state(Wl, layout, dev), evd), what)
         rk, ok = payload_rows_narrow(k, DEFAULT_LAYOUT)
         rp, op = payload_rows_narrow_plain(k, DEFAULT_LAYOUT)
         if max_abs_err(rk, rp) or max_abs_err(ok, op):
             fail(f"{what}: payload kernel differs from its plain version")
+        kt, lt = R.replay_tasks_scan(init_state(Wl, layout, dev), init_task_log(Wl, 128, 128, dev),
+                                     evd)
+        pt, lp = R.replay_tasks_scan_plain(init_state(Wl, layout, dev),
+                                           init_task_log(Wl, 128, 128, dev), evd)
+        states_equal(kt, pt, f"{what} with tasks")
+        logs_equal(lt, lp, f"{what} with tasks")
+        task_checks[what] = {"transfer_entries": int(lt.tr_count.sum()),
+                             "timer_entries": int(lt.tm_count.sum()),
+                             "overflow_rows": int(lt.overflow.sum())}
         return k, rk.cpu().numpy()
 
     def against_oracle(rows_, errs, orc, what):
@@ -699,7 +856,7 @@ def main() -> int:
     if 0 in codes[1:15]:
         fail(f"random lanes: some error code never fired {codes}")
     emit("random_lanes", workflows=args.lanes_w, events=args.lanes_e, error_codes=codes,
-         gen_seconds=t_lanes)
+         gen_seconds=t_lanes, replay_tasks_equal_plain=task_checks)
 
     # the random lanes as wirec (no-op rows between real ones: the decode
     # is the JAX package's, not the lanes), whole and as a carried split
@@ -806,9 +963,51 @@ def main() -> int:
          rung1_bound_by="bytes" if rung_bytes / HBM_BYTES_PER_S >= rung_ops / SCALAR_OPS_PER_S
          else "operations")
 
+    # --- 6. rebuild_path: the device rebuilder over the overflow jobs, a
+    # recovery storm of one shard's workflows
+    from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+    from cadence_tpu_torch.engine.rebuild import DeviceRebuilder
+    from cadence_tpu_torch.utils import metrics as M
+
+    jobs = [(h, None) for h in corp["overflow"]]
+    M.DEFAULT_REGISTRY.reset()
+    rb = DeviceRebuilder(DEFAULT_LAYOUT, device=DEVICE)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rebuilt = rb.rebuild(jobs)
+    t_rebuild = time.perf_counter() - t0
+    rebuild_launches = dict(_build.launches)
+    check_launches(rebuild_launches, "rebuild_path", REBUILD_PATH_KERNELS)
+    stats = rb.stats
+    if (stats.device, stats.ladder, stats.oracle_fallback) != (len(jobs), len(cap), 0):
+        fail(f"rebuild_path: stats {stats}, expected {len(jobs)} on the card, {len(cap)} "
+             "through the ladder, none by the oracle")
+    bad = []
+    for i, ms in enumerate(rebuilt):
+        row = payload_row(ms)
+        row[STICKY_ROW_INDEX] = 0
+        v = over_oracle.get(i)
+        if v is None or not np.array_equal(row, v[0]):
+            bad.append(i)
+    if bad:
+        fail(f"rebuild_path: {len(bad)} rebuilt payload rows differ from the oracle, "
+             f"first {bad[:5]}")
+    legs = {leg: M.DEFAULT_REGISTRY.histogram(M.SCOPE_REBUILD, leg).total
+            for leg in (M.M_PROFILE_PACK, M.M_PROFILE_PACK_WAIT, M.M_PROFILE_H2D,
+                        M.M_PROFILE_KERNEL, M.M_PROFILE_READBACK)}
+    legs.update({"hydrate": rb.last_run["hydrate"], "ladder": rb.last_run["ladder"]})
+    emit("rebuild_path", jobs=len(jobs), chunk_jobs=rb.chunk_jobs,
+         chunks=-(-len(jobs) // rb.chunk_jobs), device=stats.device, ladder=stats.ladder,
+         oracle_fallback=stats.oracle_fallback, kernel_errors=stats.kernel_errors,
+         payload_equal_oracle=len(jobs), seconds=t_rebuild, jobs_per_s=len(jobs) / t_rebuild,
+         pipeline_s=rb.last_run["device"], leg_seconds=legs,
+         ladder_rungs=list(rb.ladder.last_run), launches=rebuild_launches)
+    del rebuilt, jobs
+
     # --- the summary lines
     paths = {"main_path": main_launches, "wirec_path": wirec_launches,
-             "fallback_ladder": ladder_launches}
+             "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
     print(json.dumps({"launches": paths}))
