@@ -14,8 +14,10 @@ Layout (mirrors cadence_tpu):
            payload / CRC / verify
   csrc/    the CUDA kernels (built at first use by ops/_build.py)
   native/  the C++ wirec encoder (built with g++ at first use) and staging
-  engine/  the capacity-escalation ladder
-  utils/   pack-thread knob, metrics registry
+  parallel/ the device mesh: workflow-axis sharding over a list of devices
+  engine/  the escalation ladder, the bulk executor, the device rebuilder,
+           the bulk verify engine (tpu_engine.py) and the stores it reads
+  utils/   pack-thread knob, metrics registry, profiler, flight recorder
 """
 
 __version__ = "0.1.0"

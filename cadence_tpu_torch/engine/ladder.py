@@ -18,6 +18,13 @@ padded to power-of-two shapes (workflows to at least 8, events to at
 least 16), as the JAX package pads them for its compile cache, so the
 rows each rung replays and `last_run` are the reference's.
 
+Given a mesh of more than one device (`mesh`, set by the engines that
+serve from one), the dense and wirec rungs re-replay under the mesh's
+shard axis (parallel/mesh.py replay_sharded_escalated,
+replay_wirec_sharded_escalated_crc), the sub-corpus padded to a multiple
+of the mesh size; the rungs that keep their widened states
+(escalate_states) stay on the ladder's own device, as in the JAX package.
+
 Counters land under `tpu.fallback` (flagged rows, rows per rung, resolved
 and residual rows) and each rung's seconds under its `fallback` series.
 """
@@ -36,6 +43,7 @@ from ..ops.encode import gather_subcorpus
 from ..ops.replay import replay_escalated, replay_escalated_state, replay_wirec_escalated_crc
 from ..ops.state import CAPACITY_ERRORS, widen_layout
 from ..ops.wirec import gather_corpus
+from ..parallel.mesh import replay_sharded_escalated, replay_wirec_sharded_escalated_crc
 from ..utils import metrics as m
 
 #: rungs above base capacity (K -> 2K -> 4K with the default 2)
@@ -74,13 +82,17 @@ class EscalationLadder:
     (None: the card)."""
 
     def __init__(self, layout: PayloadLayout = DEFAULT_LAYOUT,
-                 max_rungs: Optional[int] = None, registry=None, device=None) -> None:
+                 max_rungs: Optional[int] = None, registry=None, device=None,
+                 mesh=None) -> None:
         self.layout = layout
         self.max_rungs = (max_rungs if max_rungs is not None
                           else int(os.environ.get(RUNGS_ENV, str(DEFAULT_RUNGS))))
         self.max_rungs = max(1, self.max_rungs)
         self.metrics = registry if registry is not None else m.DEFAULT_REGISTRY
         self.device = resolve_device(device)
+        #: when set, the dense and wirec rungs re-replay sharded over the
+        #: mesh instead of on `device`
+        self.mesh = mesh
         #: per-rung accounting of the most recent escalate/finish call
         self.last_run: List[dict] = []
 
@@ -89,10 +101,15 @@ class EscalationLadder:
     def rung_layout(self, rung: int) -> PayloadLayout:
         return widen_layout(self.layout, 2 ** rung)
 
-    @staticmethod
-    def _pad_dims(F: int, E: int) -> Tuple[int, int]:
-        """The power-of-two padded shape of a rung's sub-corpus."""
-        return _pow2(F, 8), _pow2(E, 16)
+    def _pad_dims(self, F: int, E: int) -> Tuple[int, int]:
+        """The power-of-two padded shape of a rung's sub-corpus; the
+        workflow axis also rounds up to a multiple of the mesh, so every
+        shard gets a whole slice."""
+        Wp = _pow2(F, 8)
+        n = self.mesh.size if self.mesh is not None else 0
+        if n > 1 and Wp % n:
+            Wp = -(-Wp // n) * n
+        return Wp, _pow2(E, 16)
 
     @staticmethod
     def capacity_flagged(errors: np.ndarray) -> np.ndarray:
@@ -115,6 +132,8 @@ class EscalationLadder:
         return gather_subcorpus(sub, np.arange(F), Wp, Ep)
 
     def _rung(self, rung: int, padded: np.ndarray):
+        if self.mesh is not None:
+            return replay_sharded_escalated(padded, self.mesh, self.rung_layout(rung), self.layout)
         return replay_escalated(padded, self.rung_layout(rung), self.layout, self.device)
 
     # -- dense-lane path ----------------------------------------------------
@@ -242,9 +261,13 @@ class EscalationLadder:
             n = len(active)
             Wp, Ep = self._pad_dims(n, cur.slab.shape[1])
             padded = gather_corpus(cur, np.arange(n), Wp, Ep)
-            outs = replay_wirec_escalated_crc(padded.slab, padded.bases, padded.n_events,
-                                              padded.profile, self.rung_layout(rung),
-                                              self.layout, self.device)
+            if self.mesh is not None:
+                outs = replay_wirec_sharded_escalated_crc(padded, self.mesh,
+                                                          self.rung_layout(rung), self.layout)
+            else:
+                outs = replay_wirec_escalated_crc(padded.slab, padded.bases, padded.n_events,
+                                                  padded.profile, self.rung_layout(rung),
+                                                  self.layout, self.device)
             crc, err, ovf = (a.cpu().numpy()[:n] for a in outs)
             self._record_rung(rung, n, time.perf_counter() - t0)
             ok = (err == 0) & ~ovf

@@ -21,12 +21,16 @@ consumers in the reference: NDC conflict resolution's winning-branch
 rebuild, crash-recovery state reconstruction and workflow reset's prefix
 replay (reset/resetter.go:96).
 
-This is the JAX package's engine/rebuild.py DeviceRebuilder on one card.
-Its consults of the resident state cache and of persisted snapshots come
-with the resident slice of the port, and its serving mesh with the
-multi-GPU slice. Without CUDA, and with no device named, `rebuild` raises;
-it never degrades to the oracle on its own. `on_device=False` is the
-caller's explicit request for the oracle.
+This is the JAX package's engine/rebuild.py DeviceRebuilder. Its chunks
+fan across the serving mesh (parallel/mesh.py; a mesh of 1 is one card):
+each chunk pads to a multiple of the mesh size, its slices are copied to
+their devices, and each shard runs its own launches; the ladder's dense
+rungs ride the same mesh. Its consults of the resident state cache and of
+persisted snapshots come with the resident slice of the port. Without
+CUDA, and with no device or mesh named, `rebuild` raises: the JAX
+rebuilder degrades to the oracle when `serving_mesh()` finds no backend,
+the port never does so on its own. `on_device=False` is the caller's
+explicit request for the oracle.
 """
 from __future__ import annotations
 
@@ -36,7 +40,6 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..core.checksum import DEFAULT_LAYOUT, PayloadLayout, payload_row
 from ..core.enums import EventType
@@ -91,15 +94,18 @@ def _host_state(s):
 
 
 class DeviceRebuilder:
-    """Batched device replay → full MutableState objects, on `device`
-    (None: the card)."""
+    """Batched device replay → full MutableState objects, on the devices of
+    `mesh`, or on `device` (None: the serving mesh over the cards)."""
 
     def __init__(self, layout: PayloadLayout = DEFAULT_LAYOUT,
-                 chunk_jobs: Optional[int] = None, device=None) -> None:
+                 chunk_jobs: Optional[int] = None, device=None, mesh=None) -> None:
         from ..utils.metrics import DEFAULT_REGISTRY
 
         self.layout = layout
         self.device = device
+        #: the mesh the chunks fan across, resolved on the first device
+        #: rebuild (so an oracle-only caller never asks for the card)
+        self._mesh = mesh
         self.stats = RebuildStats()
         self.metrics = DEFAULT_REGISTRY
         #: the escalation ladder, made on the first device rebuild (its
@@ -116,6 +122,18 @@ class DeviceRebuilder:
         #: and `ladder` (the capacity-flagged rows: encode, escalate_states,
         #: readback and hydration)
         self.last_run: Dict[str, float] = {}
+
+    @property
+    def mesh(self):
+        """The serving mesh (parallel/mesh.serving_mesh), or a mesh of the
+        one device the rebuilder was given; raises without CUDA when
+        neither names another device."""
+        if self._mesh is None:
+            from ..parallel.mesh import Mesh, serving_mesh
+
+            self._mesh = (serving_mesh() if self.device is None
+                          else Mesh([resolve_device(self.device)]))
+        return self._mesh
 
     def rebuild_one(self, batches: Sequence[HistoryBatch],
                     domain_entry: Optional[DomainEntry] = None) -> MutableState:
@@ -135,54 +153,70 @@ class DeviceRebuilder:
             scope.inc(m.M_ORACLE_FALLBACKS, len(jobs))
             self._gauge_fallback_rate()
             return [self._oracle_rebuild(b, e) for b, e in jobs]
-        dev = resolve_device(self.device)
+        mesh = self.mesh
+        dev = mesh.devices[0]
         if not jobs:
             return []
-        from ..ops.encode import encode_corpus, history_length
+        from ..ops.encode import LANE_EVENT_TYPE, encode_corpus, history_length
         from ..ops.payload import payload_rows
         from ..ops.replay import replay_events_with_tasks
         from ..ops.state import CAPACITY_ERRORS
         from ..utils.profiler import ReplayProfiler
-        from .executor import BulkReplayExecutor
+        from ..parallel.mesh import place_corpus, run_shards
+        from .executor import BulkReplayExecutor, sync_devices
         from .ladder import EscalationLadder
 
         if self.ladder is None:
-            self.ladder = EscalationLadder(self.layout, registry=self.metrics, device=dev)
+            self.ladder = EscalationLadder(self.layout, registry=self.metrics, device=dev,
+                                           mesh=mesh if mesh.size > 1 else None)
         # rebuilds profile under their own scope, so a reset or recovery
         # storm is told apart from bulk-verify traffic
         prof = ReplayProfiler(self.metrics, scope=m.SCOPE_REBUILD)
 
         # chunked through the bulk executor: a recovery storm packs chunk
         # N+1 while chunk N replays, and each chunk's event axis is sized
-        # to its own longest history
+        # to its own longest history. The chunks fan across the mesh
         chunk_jobs = max(1, self.chunk_jobs)
         spans = [(lo, min(lo + chunk_jobs, len(jobs))) for lo in range(0, len(jobs), chunk_jobs)]
-        executor = BulkReplayExecutor(registry=self.metrics, scope=m.SCOPE_REBUILD, device=dev)
+        executor = BulkReplayExecutor(registry=self.metrics, scope=m.SCOPE_REBUILD, mesh=mesh)
 
         def pack(ci):
             lo, hi = spans[ci]
             chunk = jobs[lo:hi]
-            corpus = encode_corpus([b for b, _ in chunk], max(history_length(b) for b, _ in chunk))
-            return corpus, sum(history_length(b) for b, _ in chunk)
+            batches = [b for b, _ in chunk]
+            corpus = encode_corpus(batches, max(map(history_length, batches)))
+            pad_w = -len(chunk) % mesh.size
+            if pad_w:
+                # a whole slice per device: pad with no-op rows
+                pad = np.zeros((pad_w,) + corpus.shape[1:], dtype=corpus.dtype)
+                pad[:, :, LANE_EVENT_TYPE] = -1
+                corpus = np.concatenate([corpus, pad])
+            return corpus, sum(map(history_length, batches))
+
+        def shard(d, ev):
+            state, _log = replay_events_with_tasks(ev, self.layout, device=d)
+            return state, payload_rows(state, self.layout)
 
         def launch(ci, packed):
             corpus, chunk_events = packed
             scope.inc(m.M_KERNEL_LAUNCHES)
             scope.inc(m.M_EVENTS_REPLAYED, chunk_events)
             with prof.leg(m.M_PROFILE_H2D):
-                device_corpus = torch.from_numpy(corpus).to(dev)
+                parts = place_corpus(corpus, mesh)
                 prof.h2d(corpus.nbytes)
-            state, _log = replay_events_with_tasks(device_corpus, self.layout, device=dev)
-            return state, payload_rows(state, self.layout)
+            return run_shards(mesh, parts, shard)
 
         def consume(ci, outs):
-            state, rows_dev = outs
             with prof.leg(m.M_PROFILE_KERNEL):
-                # one stream: this waits for every chunk launched so far
-                if dev.type == "cuda":
-                    torch.cuda.current_stream(dev).synchronize()
+                # each device's one stream: this waits for every chunk
+                # launched so far
+                sync_devices(mesh.devices)
             with prof.leg(m.M_PROFILE_READBACK):
-                return rows_dev.cpu().numpy(), _host_state(state)
+                rows = np.concatenate([r.cpu().numpy() for _, r in outs])
+                if len(outs) == 1:
+                    return rows, _host_state(outs[0][0])
+                return rows, map_state(lambda *ts: np.concatenate([t.cpu().numpy() for t in ts]),
+                                       *(s for s, _ in outs))
 
         t0 = time.perf_counter()
         with scope.timed():

@@ -126,6 +126,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_verify_rows.restype = I
     # rows, expected, branch, expected_branch, out, W, width, stream
     lib.cadence_verify_rows.argtypes = [P, P, P, P, P, L, I, P]
+    lib.cadence_stats.restype = I
+    lib.cadence_stats.argtypes = [P, P, P, L, P]  # error, close_status, out, W, stream
 
 
 def load() -> ctypes.CDLL:
@@ -148,7 +150,7 @@ def check(rc: int, what: str) -> None:
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
 launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "payload": 0, "crc32": 0,
-            "verify_rows": 0, "decode_wirec": 0}
+            "verify_rows": 0, "decode_wirec": 0, "stats": 0}
 
 
 def reset_launches() -> None:

@@ -1,8 +1,9 @@
 """Counters, timers, gauges and histograms behind (scope, name) keys: the
 part of the JAX package's utils/metrics.py that the port's device layers
 write to (the escalation ladder, the native wirec dispatcher, the bulk
-executor, the device rebuilder and the replay profiler), under the same
-scope and metric names.
+executor, the device rebuilder, the replay engine, the pack cache, the
+snapshot store and the replay profiler), under the same scope and metric
+names.
 
 Histograms are fixed-bucket (prometheus `le` semantics) with interpolated
 percentiles, as in the JAX package; the Prometheus text exposition of the
@@ -23,11 +24,17 @@ SCOPE_TPU_REPLAY = "tpu.replay-engine"
 #: the device rebuilder (engine/rebuild.py): its own profiler legs and
 #: device-rebuilds / oracle-fallbacks counters
 SCOPE_REBUILD = "tpu.device-rebuilder"
+#: the content-addressed pack cache (engine/cache.py PackCache)
+SCOPE_PACK_CACHE = "tpu.pack-cache"
 #: capacity-escalation ladder (engine/ladder.py)
 SCOPE_TPU_FALLBACK = "tpu.fallback"
 #: the bulk executor (engine/executor.py): chunks-dispatched,
-#: pack-queue-wait and the device-busy gauge
+#: rows-dispatched, pack-queue-wait and the device-busy gauge, with a
+#: per-device series (device_metric) when it runs over a mesh
 SCOPE_TPU_EXECUTOR = "tpu.executor"
+#: persisted mutable-state snapshots (engine/snapshot.py): records found
+#: stale or torn are counted and never served
+SCOPE_TPU_SNAPSHOT = "tpu.snapshot"
 #: the native (C++) wirec encoder seam (native/wirec.py): the `available`
 #: gauge says whether the compiled library loads in this process,
 #: native-packs / python-packs count which encoder served each pack
@@ -36,6 +43,7 @@ SCOPE_TPU_NATIVE = "tpu.native"
 M_LATENCY = "latency"
 M_KERNEL_LAUNCHES = "kernel-launches"
 M_EVENTS_REPLAYED = "events-replayed"
+M_REPLAY_THROUGHPUT = "replay-events-per-sec"
 M_DEVICE_REBUILDS = "device-rebuilds"
 M_ORACLE_FALLBACKS = "oracle-fallbacks"
 M_FALLBACK_RATE = "fallback-rate"
@@ -63,7 +71,16 @@ M_LADDER_RESIDUAL = "residual-oracle-rows"
 #: executor counters (SCOPE_TPU_EXECUTOR): chunks dispatched, and the
 #: in-flight chunk count as the device-busy gauge
 M_EXEC_CHUNKS = "chunks-dispatched"
+M_EXEC_ROWS = "rows-dispatched"
 M_EXEC_DEVICE_BUSY = "device-busy"
+#: pack-cache counters (SCOPE_PACK_CACHE)
+M_CACHE_HITS = "hits"
+M_CACHE_MISSES = "misses"
+M_CACHE_EVICTIONS = "evictions"
+M_CACHE_SUFFIX_PACKS = "suffix-packs"
+#: snapshot records skipped as stale (format or layout) or torn (blob CRC)
+M_SNAP_IGNORED_STALE = "ignored-stale"
+M_SNAP_IGNORED_TORN = "ignored-torn"
 M_NATIVE_AVAILABLE = "available"
 M_NATIVE_PACKS = "native-packs"
 M_NATIVE_PY_PACKS = "python-packs"
@@ -72,6 +89,12 @@ M_NATIVE_PY_PACKS = "python-packs"
 def ladder_rung_rows(rung: int) -> str:
     """Per-rung row counter name: rows-rung1, rows-rung2, ..."""
     return f"rows-rung{rung}"
+
+
+def device_metric(name: str, device: int) -> str:
+    """Per-device series name: chunks-dispatched-dev0, device-busy-dev3,
+    ...: the mesh position rides the flat (scope, name) key."""
+    return f"{name}-dev{device}"
 
 
 #: latency buckets (seconds): sub-millisecond paths through multi-second

@@ -13,10 +13,17 @@ Phases, one JSON line each:
      process pool, then replay_corpus(..., device="cuda"), replay_to_crc32 on
      the wire32 lanes and a verify_rows pass. Device CRCs and rows are held
      against the oracle (StateBuilder) on 256 sampled workflows per suite.
+     The same lanes through the path's other entry points: StreamingReplayer
+     in event chunks of 32 (the one-shot replay's rows and errors),
+     replay_sharded_crc on the wire32 lanes over meshes of 1 and 2 slices
+     of the card (replay_to_crc32's CRCs, and stats equal to the plain
+     counts), and replay_corpus_mesh at 4,096 workflows a chunk
+     (replay_corpus's rows).
      wirec_path: the same lanes through pack_wirec_auto, stage_corpus
      (page-locked memory, a side stream) and replay_wirec_to_crc, whose CRCs
-     and errors must equal the int64 path's; the host-to-device time of the
-     int64, wire32 and wirec bytes.
+     and errors must equal the int64 path's, then stream_wirec_mesh in 4
+     workflow chunks, which must give the same CRCs; the host-to-device
+     time of the int64, wire32 and wirec bytes.
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes (tolerance 0: every value is an integer), timed with CUDA
      events (median of REPS; only the kernel's launch lies between the
@@ -28,7 +35,9 @@ Phases, one JSON line each:
      sampled workflows, no overflow at 128/128 and the plain version's
      overflow rows at 4/4), A's wirec reader, B, C, D, and kernel E
      (decode_wirec), which must also give the lanes themselves and,
-     replayed by kernel A, the fused reader's state.
+     replayed by kernel A, the fused reader's state, and kernel F (stats,
+     a shard's error and closed counts) with torch.count_nonzero as its
+     yardstick.
   4. the paths the suites never reach: the `overflow` suite, continue-as-new
      chains, divergent branch trees and a lane-level random corpus (also
      packed as wirec, whole and split into a carried prefix and a suffix);
@@ -49,7 +58,19 @@ Phases, one JSON line each:
      must equal the oracle's, every job rebuilt on the card and the
      flagged ones by the ladder, none by the oracle. Prints each leg's
      seconds and jobs/s.
-Each driven path (main path, wirec_path, fallback_ladder, rebuild_path)
+  7. verify_path: TPUReplayEngine(stores, chunk_workflows=4096).verify_all()
+     over Stores holding the 16,384 overflow histories (their live states
+     the MutableStates rebuild_path returned) and 2,048 histories of each
+     of the four other suites (their live states the oracle's, built in
+     the generation pool), 64 of the live states altered first (32 payload
+     fields, 32 current-branch indices). `divergent` must be exactly the
+     altered keys, `escalated` exactly the ladder-flagged keys, `fallback`
+     exactly the keys with a non-capacity error; then verify_all on a mesh
+     of two slices of the card over 4,096 of the keys must equal the mesh
+     of 1 on them. Prints the executor's legs, the ladder's rungs, the host
+     seconds of the expected rows, the wall time and workflows/s.
+Each driven path (main path, wirec_path, fallback_ladder, rebuild_path,
+verify_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched. The last lines are the launch
 counts, the card's name and power limit, the per-kernel table, and
@@ -81,9 +102,13 @@ REPS = 5  # timed runs per kernel, after one warm-up; the median is kept
 PLAIN_REPS = 3  # timed runs of a plain replay, which takes a second or more
 DEVICE = "cuda"
 #: the kernels each driven path must launch (ops/_build.launches keys)
-MAIN_PATH_KERNELS = ("replay", "payload", "crc32", "verify_rows")
+MAIN_PATH_KERNELS = ("replay", "payload", "crc32", "verify_rows", "stats")
 WIREC_PATH_KERNELS = ("replay_wirec", "payload", "crc32")
 REBUILD_PATH_KERNELS = ("replay_tasks", "payload", "replay")
+VERIFY_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats")
+#: verify_path's suites beside the overflow suite (whose workflows are
+#: mostly gen_basic's)
+VERIFY_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "ndc")
 
 
 def emit(phase: str, **fields) -> None:
@@ -138,6 +163,17 @@ def _gen_chunk(task):
                                                if with_tasks else ())
               for i in sample}
     return hs, oracle
+
+
+def _gen_states(task):
+    """verify_path's live states: the oracle's MutableState of each of a
+    suite's histories (the main path's histories of the same indices)."""
+    from cadence_tpu_torch.gen.corpus import generate_history
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    suite, start, count = task
+    return [StateBuilder().replay_history(generate_history(suite, SEED, i, TARGET_EVENTS))
+            for i in range(start, start + count)]
 
 
 def _gen_chains(task):
@@ -232,12 +268,15 @@ def generate(args):
     ctasks = [(SUITES[k % len(SUITES)], s, n, 3 * 80)
               for k, (s, n) in enumerate(_chunks(args.chains, 512))]
     ttasks = [(s, n, 40) for s, n in _chunks(args.trees, 1024)]
+    vtasks = [(suite, s, n) for suite in VERIFY_SUITES
+              for s, n in _chunks(args.verify_per_suite, 512)]
 
     t0 = time.perf_counter()
     with mp.get_context("spawn").Pool(os.cpu_count()) as pool:
         pending = [pool.map_async(fn, ts, chunksize=1) for fn, ts in (
-            (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks))]
-        main_parts, over_parts, chain_parts, tree_parts = (p.get() for p in pending)
+            (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks),
+            (_gen_states, vtasks))]
+        main_parts, over_parts, chain_parts, tree_parts, state_parts = (p.get() for p in pending)
     histories, oracle = _concat(tasks, main_parts)
     over_h, over_oracle = _concat(otasks, over_parts)
     chain_lanes, chain_oracle = _concat(ctasks, chain_parts)
@@ -246,6 +285,7 @@ def generate(args):
         "overflow": over_h, "overflow_oracle": over_oracle,
         "chains": np.stack(chain_lanes), "chain_oracle": chain_oracle,
         "trees": np.stack([x for part in tree_parts for x in part]),
+        "verify_states": [ms for part in state_parts for ms in part],
         "seconds": time.perf_counter() - t0,
     }
 
@@ -444,6 +484,111 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
+def verify_path(args, corp, rebuilt, escalated, residual) -> dict:
+    """Phase 7: TPUReplayEngine.verify_all over Stores, as an operator's
+    `admin verify` runs it. `escalated` and `residual` are the overflow
+    rows fallback_ladder resolved on the card and left for the oracle.
+    Returns the launch counts of the run."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.engine.persistence import Stores
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.gen.corpus import SUITES
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.parallel.mesh import Mesh
+    from cadence_tpu_torch.utils import metrics as M
+
+    per = args.verify_per_suite
+    hists = list(corp["overflow"]) + [
+        h for suite in VERIFY_SUITES
+        for h in corp["histories"][SUITES.index(suite) * args.per_suite:][:per]]
+    live = list(rebuilt) + corp["verify_states"]
+    t0 = time.perf_counter()
+    stores = Stores()
+    keys = []
+    for h, ms in zip(hists, live):
+        key = (h[0].domain_id, h[0].workflow_id, h[0].run_id)
+        for b in h:
+            stores.history.append_batch(*key, list(b.events))
+        stores.execution.upsert_workflow(ms)
+        keys.append(key)
+    if len(keys) != len(live) or stores.execution.list_executions() != keys:
+        fail("verify_path: the live states' keys differ from the histories'")
+    # 64 live states altered: 32 payload fields, 32 current-branch indices
+    # (a duplicate branch made current: the same row, another branch)
+    rng = np.random.default_rng(SEED)
+    altered = [keys[int(i)] for i in rng.choice(len(keys), 64, replace=False)]
+    for n, key in enumerate(altered):
+        ms = stores.execution.get_workflow(*key)
+        if n < 32:
+            ms.execution_info.signal_count += 1
+        else:
+            vhs = ms.version_histories
+            vhs.histories.append(copy.deepcopy(vhs.histories[vhs.current_index]))
+            vhs.current_index = len(vhs.histories) - 1
+    t_stores = time.perf_counter() - t0
+
+    over_keys = keys[:len(corp["overflow"])]
+    want_escalated = sorted(over_keys[int(i)] for i in escalated)
+    want_fallback = sorted(over_keys[int(i)] for i in residual)
+    M.DEFAULT_REGISTRY.reset()
+    engine = TPUReplayEngine(stores, chunk_workflows=4096)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.verify_all()
+    t_verify = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches(launches, "verify_path", VERIFY_PATH_KERNELS)
+    if sorted(res.divergent) != sorted(altered):
+        fail(f"verify_path: {len(res.divergent)} divergent keys, not the 64 altered ones")
+    if sorted(res.escalated) != want_escalated:
+        fail(f"verify_path: {len(res.escalated)} escalated keys, not the {len(want_escalated)} "
+             "the ladder resolves")
+    if sorted(res.fallback) != want_fallback:
+        fail(f"verify_path: {len(res.fallback)} fallback keys, not the {len(want_fallback)} "
+             "with a non-capacity error")
+    if res.total != len(keys) or res.verified_on_device + len(res.fallback) != len(keys):
+        fail(f"verify_path: {res.verified_on_device} verified on the card and "
+             f"{len(res.fallback)} by the oracle, of {res.total}")
+    legs = {leg: M.DEFAULT_REGISTRY.histogram(M.SCOPE_TPU_REPLAY, leg).total
+            for leg in (M.M_PROFILE_PACK, M.M_PROFILE_PACK_WAIT, M.M_PROFILE_H2D,
+                        M.M_PROFILE_KERNEL, M.M_PROFILE_READBACK)}
+
+    # the same stores on a mesh of two slices of the card, over 4,096 keys
+    sub = [keys[int(i)] for i in sorted(rng.choice(len(keys), min(4096, len(keys)),
+                                                   replace=False))]
+    engine2 = TPUReplayEngine(stores, chunk_workflows=4096,
+                              mesh=Mesh([torch.device(DEVICE)] * 2))
+    t0 = time.perf_counter()
+    res2 = engine2.verify_all(sub)
+    t_mesh2 = time.perf_counter() - t0
+    in_sub = set(sub)
+    for name in ("divergent", "fallback", "escalated", "device_errors"):
+        want = sorted(x for x in getattr(res, name)
+                      if (x[0] if name == "device_errors" else x) in in_sub)
+        if sorted(getattr(res2, name)) != want:
+            fail(f"verify_path: the mesh of 2 differs from the mesh of 1 on {name}")
+    if res2.total != len(sub) or res2.verified_on_device != len(sub) - len(res2.fallback):
+        fail("verify_path: the mesh of 2 verified another count than the mesh of 1")
+    emit("verify_path", workflows=len(keys), overflow=len(over_keys), per_suite=per,
+         suites=list(VERIFY_SUITES), chunk_workflows=engine.chunk_workflows,
+         chunk_shapes=engine.last_run_chunk_shapes, verified_on_device=res.verified_on_device,
+         divergent=len(res.divergent), altered=len(altered), escalated=len(res.escalated),
+         fallback=len(res.fallback), device_errors=len(res.device_errors),
+         stores_s=t_stores, seconds=t_verify, workflows_per_s=len(keys) / t_verify,
+         leg_seconds=legs, expected_rows_s=engine.last_run["expected_rows"],
+         ladder_s=engine.last_run["ladder"], arbitrate_s=engine.last_run["arbitrate"],
+         ladder_rungs=list(engine.ladder.last_run), launches=launches,
+         mesh2={"workflows": len(sub), "seconds": t_mesh2, "divergent": len(res2.divergent),
+                "escalated": len(res2.escalated), "chunks": len(engine2.last_run_chunk_shapes),
+                "equal_to_mesh_of_1": True})
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -460,6 +605,7 @@ def main() -> int:
     args.chains = 2048 if full else 128
     args.trees = 4096 if full else 256
     args.lanes_w = 65536 if full else 2048
+    args.verify_per_suite = 2048 if full else 128
     args.lanes_e = 128
 
     import torch
@@ -471,6 +617,7 @@ def main() -> int:
 
     from cadence_tpu_torch import device as D
     from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT, crc32_of_rows
+    from cadence_tpu_torch.engine.executor import replay_corpus_mesh, stream_wirec_mesh
     from cadence_tpu_torch.engine.ladder import EscalationLadder
     from cadence_tpu_torch.gen.lanes import random_lanes
     from cadence_tpu_torch.native import wirec as NW
@@ -483,7 +630,10 @@ def main() -> int:
     from cadence_tpu_torch.ops.convert import task_log_to_numpy
     from cadence_tpu_torch.ops.state import (CAPACITY_ERRORS, init_state, leaves, widen_layout,
                                              widen_state)
+    from cadence_tpu_torch.ops.stats import stats, stats_launch, stats_plain
+    from cadence_tpu_torch.ops.streaming import replay_streamed
     from cadence_tpu_torch.ops.taskgen import init_task_log
+    from cadence_tpu_torch.parallel.mesh import Mesh, replay_sharded_crc
     from cadence_tpu_torch.utils.metrics import M_NATIVE_PACKS, SCOPE_TPU_NATIVE, MetricsRegistry
 
     t_start = time.perf_counter()
@@ -529,6 +679,26 @@ def main() -> int:
     mismatch_np = mismatch.cpu().numpy()
     torch.cuda.synchronize()
     t_wire = time.perf_counter() - t1
+    # the same lanes through the path's other entry points
+    t1 = time.perf_counter()
+    st_rows, st_err = replay_streamed(events_np, 32, device=DEVICE)
+    if not np.array_equal(st_rows, rows) or not np.array_equal(st_err, errors):
+        fail("main path: StreamingReplayer in chunks of 32 differs from the one-shot replay")
+    plain_counts = stats_plain(s32.error, s32.close_status).cpu().numpy()
+    sharded_stats = {}
+    for n in (1, 2):
+        crc_m, err_m, st_m = replay_sharded_crc(wire_np, Mesh([dev] * n))
+        if (not torch.equal(crc_m, crc_w) or not torch.equal(err_m, err_w)
+                or not np.array_equal(st_m.numpy(), plain_counts)):
+            fail(f"main path: replay_sharded_crc on a mesh of {n} differs from replay_to_crc32 "
+                 f"or the plain counts ({st_m.tolist()} against {plain_counts.tolist()})")
+        sharded_stats[n] = st_m.tolist()
+    m_rows, m_err, _, m_report = replay_corpus_mesh(events_np, chunk_workflows=4096)
+    if not np.array_equal(m_rows, rows) or not np.array_equal(m_err, errors):
+        fail("main path: replay_corpus_mesh differs from replay_corpus")
+    del st_rows, m_rows, crc_m
+    torch.cuda.synchronize()
+    t_entry = time.perf_counter() - t1
     main_launches = dict(_build.launches)
     if (errors != 0).any():
         fail(f"main path: {int((errors != 0).sum())} rows with errors {np.unique(errors)}")
@@ -551,7 +721,9 @@ def main() -> int:
     check_launches(main_launches, "main path", MAIN_PATH_KERNELS)
     emit("main_path", config=config, workflows=W, max_events=E, real_events=real,
          oracle_sampled=len(oracle), encode_s=t_encode, replay_corpus_s=t_corpus,
-         wire32_and_verify_s=t_wire, launches=main_launches,
+         wire32_and_verify_s=t_wire, streamed_sharded_and_mesh_s=t_entry,
+         streamed_chunk_events=32, sharded_stats=sharded_stats,
+         corpus_mesh_chunks=m_report.chunks, launches=main_launches,
          lanes_bytes=int(events_np.nbytes), wire32_bytes=int(wire_np.nbytes))
 
     # --- wirec_path: the same lanes compressed, staged and replayed with the
@@ -566,15 +738,21 @@ def main() -> int:
     crc_c, err_c = R.replay_wirec_to_crc(*NW.stage_corpus(wc, dev), wc.profile, device=DEVICE)
     crc_c, err_c = crc_c.cpu().numpy().astype(np.uint32), err_c.cpu().numpy()
     t_wirec = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    crc_sw, err_sw, sw_report = stream_wirec_mesh(wc, n_chunks=4)
+    t_stream = time.perf_counter() - t1
     wirec_launches = dict(_build.launches)
     if not np.array_equal(crc_c, crcs) or not np.array_equal(err_c, errors):
         fail("wirec_path: CRCs or errors differ from the int64 path")
+    if not np.array_equal(crc_sw, crc_c) or not np.array_equal(err_sw, err_c):
+        fail("wirec_path: stream_wirec_mesh differs from replay_wirec_to_crc")
     check_launches(wirec_launches, "wirec_path", WIREC_PATH_KERNELS)
     h2d = {fmt: h2d_ms(NW, arrays, dev) for fmt, arrays in (
         ("int64", [events_np]), ("wire32", [wire_np]),
         ("wirec", [wc.slab, wc.bases, wc.n_events]))}
     emit("wirec_path", native_packer=reg.counter(SCOPE_TPU_NATIVE, M_NATIVE_PACKS) == 1,
-         pack_s=t_pack, stage_and_replay_s=t_wirec, wirec_bytes=wc.wire_bytes,
+         pack_s=t_pack, stage_and_replay_s=t_wirec, stream_wirec_mesh_s=t_stream,
+         stream_wirec_mesh_chunks=sw_report.chunks, wirec_bytes=wc.wire_bytes,
          bytes_per_event=wc.bytes_per_event(), lanes_bytes_per_event=events_np.nbytes / real,
          wire32_bytes_per_event=wire_np.nbytes / real, slab_bytes_per_row=int(wc.slab.shape[2]),
          h2d_ms=h2d, launches=wirec_launches)
@@ -732,6 +910,24 @@ def main() -> int:
         W * (L.width + 1), yardstick="(rows != expected).any(1) | (branch != expected_branch)",
         yardstick_ms=ms_dp))
     emit("kernel_verify_rows", max_abs_err=err_d, planted=int(v_p.sum()), ms=ms_d, plain_ms=ms_dp)
+    # F: a shard's stats, against the plain version; the yardstick is
+    # torch.count_nonzero of each of the two tensors
+    error_t, close_t = s_k.error, s_k.close_status
+    f_k = stats(error_t, close_t)
+    f_p = stats_plain(error_t, close_t)
+    err_f = max_abs_err(f_k, f_p)
+    if err_f or int(f_p[1]) == 0:
+        fail(f"stats kernel differs from its plain version ({f_k.tolist()} against {f_p.tolist()})")
+    ms_f = cuda_ms(launch, setup=lambda: stats_launch(error_t, close_t)[0], inner=20)
+    ms_fp = cuda_ms(lambda _: stats_plain(error_t, close_t), inner=20)
+    ms_fl = cuda_ms(lambda _: (torch.count_nonzero(error_t), torch.count_nonzero(close_t)),
+                    inner=20)
+    records.append(kernel_record(
+        "stats", "cadence_tpu_torch/csrc/stats.cu", "cadence_tpu/parallel/mesh.py:104",
+        None, err_f, ms_f, ms_fp, W * 8 + 16, 4 * W, library_ms=ms_fl,
+        library="torch.count_nonzero of each tensor"))
+    emit("kernel_stats", max_abs_err=err_f, counts=f_k.tolist(), ms=ms_f, plain_ms=ms_fp,
+         count_nonzero_ms=ms_fl)
     # A's wirec reader, on the main path's wirec corpus staged afresh
     slab_d, bases_d, n_d = NW.stage_corpus(wc, dev)
     prof = wc.profile
@@ -855,6 +1051,8 @@ def main() -> int:
     codes = np.bincount(k.error.cpu().numpy(), minlength=15).tolist()
     if 0 in codes[1:15]:
         fail(f"random lanes: some error code never fired {codes}")
+    if not torch.equal(stats(k.error, k.close_status), stats_plain(k.error, k.close_status)):
+        fail("random lanes: stats kernel differs from its plain version")
     emit("random_lanes", workflows=args.lanes_w, events=args.lanes_e, error_codes=codes,
          gen_seconds=t_lanes, replay_tasks_equal_plain=task_checks)
 
@@ -1003,11 +1201,16 @@ def main() -> int:
          payload_equal_oracle=len(jobs), seconds=t_rebuild, jobs_per_s=len(jobs) / t_rebuild,
          pipeline_s=rb.last_run["device"], leg_seconds=legs,
          ladder_rungs=list(rb.ladder.last_run), launches=rebuild_launches)
-    del rebuilt, jobs
+    del jobs
+
+    # --- 7. verify_path: the engine's bulk verify over Stores
+    verify_launches = verify_path(args, corp, rebuilt, cap[resolved], residual)
+    del rebuilt
 
     # --- the summary lines
     paths = {"main_path": main_launches, "wirec_path": wirec_launches,
-             "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches}
+             "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches,
+             "verify_path": verify_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
     print(json.dumps({"launches": paths}))

@@ -15,6 +15,7 @@ from cadence_tpu.engine.executor import BulkReplayExecutor as JExecutor
 from cadence_tpu.utils import metrics as jm
 from cadence_tpu.utils.profiler import ReplayProfiler as JProfiler
 from cadence_tpu_torch.engine.executor import BulkReplayExecutor, pipeline_depth
+from cadence_tpu_torch.parallel.mesh import Mesh
 from cadence_tpu_torch.utils import metrics as m
 from cadence_tpu_torch.utils.profiler import ReplayProfiler
 
@@ -115,9 +116,10 @@ def test_pipeline_depth_floor(monkeypatch):
 
 def test_cpu_launches_need_no_marker():
     """On the CPU a launch has finished when it returns; on the card the
-    executor records a CUDA event after each launch and the ring waits on
-    it. No device named means the card."""
-    assert BulkReplayExecutor(device="cpu")._launched_marker() is None
+    executor records a CUDA event per device slice after each launch and
+    the ring waits on them. No device named means the card."""
+    assert BulkReplayExecutor(device="cpu")._launched_markers() == []
+    assert BulkReplayExecutor(mesh=Mesh(["cpu", "cpu"]))._launched_markers() == []
 
 
 def test_no_device_named_means_the_card(monkeypatch):

@@ -206,3 +206,32 @@ def test_ladder_defaults_to_the_card(monkeypatch):
 def test_pad_dims_are_the_reference_buckets(F, E, want):
     port, ref, _ = _ladders()
     assert port._pad_dims(F, E) == ref._pad_dims(F, E) == want
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_mesh_rungs_equal_mesh_of_1_and_jax(n):
+    """Given a mesh, the dense and wirec rungs re-replay sharded (the
+    sub-corpus padded to a multiple of the mesh): the same outcome as on
+    one device and as the JAX ladder on its mesh of n."""
+    import jax
+
+    from cadence_tpu.parallel.mesh import make_mesh
+    from cadence_tpu_torch.parallel.mesh import Mesh
+
+    _, events, flagged = _overflow(256)
+    sub = gather_subcorpus(events, flagged)
+    port = EscalationLadder(DEFAULT_LAYOUT, registry=m.MetricsRegistry(), device="cpu",
+                            mesh=Mesh(["cpu"] * n))
+    single = EscalationLadder(DEFAULT_LAYOUT, registry=m.MetricsRegistry(), device="cpu")
+    ref = JLadder(DEFAULT_LAYOUT, variants=KernelVariantCache(),
+                  mesh=make_mesh(jax.devices()[:n]))
+    assert port._pad_dims(len(flagged), 40) == ref._pad_dims(len(flagged), 40)
+    got = port.escalate(sub)
+    _same_outcome(got, ref.escalate(sub))
+    _same_outcome(got, single.escalate(sub))
+    corpus = pack_wirec(events)
+    got_w = port.escalate_wirec(corpus, flagged)
+    for g, w, s in zip(got_w, ref.escalate_wirec(corpus, flagged),
+                       single.escalate_wirec(corpus, flagged)):
+        assert np.array_equal(g, np.asarray(w)) and np.array_equal(g, s)
+    assert got_w[1].all()

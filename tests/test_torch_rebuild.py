@@ -261,3 +261,25 @@ def test_history_size_counts_the_last_run_only():
     assert t_size(both, th[1][0].run_id) == sum(
         len(t_codec.serialize_history([b])) for b in th[1])
     assert np.isscalar(t_size(both, "no-such-run")) and t_size(both, "no-such-run") == 0
+
+
+def test_mesh_of_2_rebuild_equals_mesh_of_1_and_jax(overflow):
+    """The rebuilder's chunks fan across a mesh of 2 (25 jobs a chunk, each
+    padded to 26 with a no-op row): the same states and stats as on one
+    device and as the JAX rebuilder on its mesh of 2."""
+    import jax
+
+    from cadence_tpu.parallel.mesh import make_mesh
+    from cadence_tpu_torch.parallel.mesh import Mesh
+
+    hists, (got1, _, tr1, _) = overflow
+    jobs = [(h, None) for h in hists]
+    tr2 = DeviceRebuilder(chunk_jobs=25, mesh=Mesh(["cpu", "cpu"]))
+    got2 = tr2.rebuild(jobs)
+    jr2 = JRebuilder(chunk_jobs=25, mesh=make_mesh(jax.devices()[:2]))
+    want2 = jr2.rebuild(jobs)
+    for i, (g, g1, w) in enumerate(zip(got2, got1, want2)):
+        assert_ms_equal(g, w, f"mesh-of-2 job {i}")
+        assert_ms_equal(g, g1, f"mesh-of-2 against mesh-of-1, job {i}")
+    assert stats_tuple(tr2.stats) == stats_tuple(jr2.stats) == stats_tuple(tr1.stats)
+    assert tr2.ladder.mesh == Mesh(["cpu", "cpu"])

@@ -93,3 +93,30 @@ def assert_corpora_equal(got, want) -> None:
     for name in ("slab", "bases", "n_events"):
         g, w = getattr(got, name), getattr(want, name)
         assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), name
+
+
+#: the two packages the engine tests build stores for
+PACKAGES = ("cadence_tpu", "cadence_tpu_torch")
+
+
+def package(pkg: str, module: str):
+    """`pkg.module` (for example package("cadence_tpu_torch", "gen.corpus"))."""
+    import importlib
+
+    return importlib.import_module(f"{pkg}.{module}")
+
+
+def stores_with(hists, pkg: str):
+    """(Stores of package `pkg`, keys): each history appended to the history
+    store and, as its live state, the same package's oracle MutableState
+    of it upserted into the execution store."""
+    stores = package(pkg, "engine.persistence").Stores()
+    builder = package(pkg, "oracle.state_builder").StateBuilder
+    keys = []
+    for h in hists:
+        key = (h[0].domain_id, h[0].workflow_id, h[0].run_id)
+        for b in h:
+            stores.history.append_batch(*key, list(b.events))
+        stores.execution.upsert_workflow(builder().replay_history(h))
+        keys.append(key)
+    return stores, keys
