@@ -26,6 +26,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """`device` as the tensors on it name theirs: a CUDA device with its
+    index (the current one when it names none), the CPU with none. Two
+    names of one card then compare equal, as `torch.device("cuda")` and
+    a tensor's `cuda:0` do not. Without CUDA a CUDA name is returned as
+    it is (resolve_device raises on it)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def nvcc_path():
     """The CUDA compiler on PATH or under torch's CUDA_HOME, or None."""
     found = shutil.which("nvcc")

@@ -23,7 +23,9 @@ serve from one), the dense and wirec rungs re-replay under the mesh's
 shard axis (parallel/mesh.py replay_sharded_escalated,
 replay_wirec_sharded_escalated_crc), the sub-corpus padded to a multiple
 of the mesh size; the rungs that keep their widened states
-(escalate_states) stay on the ladder's own device, as in the JAX package.
+(escalate_states) stay on the ladder's own device, as in the JAX package,
+and the resident rungs (escalate_resident) run where the pre-append
+states live.
 
 Counters land under `tpu.fallback` (flagged rows, rows per rung, resolved
 and residual rows) and each rung's seconds under its `fallback` series.
@@ -240,6 +242,72 @@ class EscalationLadder:
         self._finalize(resolved)
         return (LadderOutcome(rows=rows_out, resolved=resolved, errors=err_out,
                               branch=branch_out, rungs=list(self.last_run)), states)
+
+    # -- resident (from-state) path -----------------------------------------
+
+    def escalate_resident(self, sub: np.ndarray, states, base_rung: int = 0):
+        """Widened re-replay of an APPEND suffix against carried states.
+
+        `sub` is the trimmed [F, E, L] suffix sub-corpus of rows whose
+        from-state append flagged a capacity error; `states` the batched
+        PRE-append states those rows replayed from (all at rung
+        `base_rung`'s layout). Each rung is one kernel-G launch that widens
+        the still-active pre-append states, pads them with init rows to the
+        padded shape and gathers the survivors of the rung before, then
+        kernel A replays ONLY the suffix and kernel B projects to the base
+        width, on the device that holds the states: an escalated append
+        stays O(new events).
+
+        Returns (outcome, states_out): outcome aligned with `sub`;
+        states_out[k] = (the rung's final state, the row in it, rung) of
+        the rung that resolved row k, or None."""
+        from ..ops.payload import payload_rows_narrow
+        from ..ops.rehome import rehome
+        from ..ops.replay import replay_scan
+        from ..parallel.mesh import _to_device, on_device
+
+        F = sub.shape[0]
+        self.metrics.inc(m.SCOPE_TPU_FALLBACK, m.M_LADDER_FLAGGED, F)
+        self.last_run = []
+        rows_out = np.zeros((F, self.layout.width), np.int64)
+        resolved = np.zeros(F, bool)
+        err_out = np.zeros(F, np.int32)
+        branch_out = np.zeros(F, np.int32)
+        states_out: List[Optional[tuple]] = [None] * F
+        active = np.arange(F)
+        #: the rows of `states` still active (the survivors' pre-append states)
+        local = np.arange(F)
+        cur = sub
+        dev = states.state.device
+        for rung in range(base_rung + 1, self.max_rungs + 1):
+            t0 = time.perf_counter()
+            padded = self._pad_dense(cur)
+            n = len(active)
+            with on_device(dev):
+                s = rehome(states, list(local) + [-1] * (padded.shape[0] - n),
+                           self.rung_layout(rung))
+                replay_scan(s, _to_device(padded, dev))
+                rows_d, ovf_d = payload_rows_narrow(s, self.layout)
+            rows, err, ovf, branch = (a[:n].cpu().numpy()
+                                      for a in (rows_d, s.error, ovf_d, s.current_branch))
+            self._record_rung(rung, n, time.perf_counter() - t0)
+            ok = (err == 0) & ~ovf
+            for k in np.nonzero(ok)[0]:
+                gi = active[k]
+                rows_out[gi] = rows[k]
+                resolved[gi] = True
+                branch_out[gi] = branch[k]
+                states_out[gi] = (s, int(k), rung)
+            err_out[active] = err
+            still = self.capacity_flagged(err)
+            if not len(still):
+                break
+            cur = gather_subcorpus(cur, still)
+            local = local[still]
+            active = active[still]
+        self._finalize(resolved)
+        return (LadderOutcome(rows=rows_out, resolved=resolved, errors=err_out,
+                              branch=branch_out, rungs=list(self.last_run)), states_out)
 
     # -- wirec path ---------------------------------------------------------
 

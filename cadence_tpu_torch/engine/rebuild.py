@@ -25,12 +25,14 @@ This is the JAX package's engine/rebuild.py DeviceRebuilder. Its chunks
 fan across the serving mesh (parallel/mesh.py; a mesh of 1 is one card):
 each chunk pads to a multiple of the mesh size, its slices are copied to
 their devices, and each shard runs its own launches; the ladder's dense
-rungs ride the same mesh. Its consults of the resident state cache and of
-persisted snapshots come with the resident slice of the port. Without
-CUDA, and with no device or mesh named, `rebuild` raises: the JAX
-rebuilder degrades to the oracle when `serving_mesh()` finds no backend,
-the port never does so on its own. `on_device=False` is the caller's
-explicit request for the oracle.
+rungs ride the same mesh. Before the device pass it consults persisted
+snapshots (`snapshots`: a valid record hydrates into the resident pool)
+and the resident pool (`resident`: an exact hit hydrates with no replay,
+a suffix hit replays only the appended batches), as the JAX package
+does. Without CUDA, and with no device or mesh named, `rebuild` raises:
+the JAX rebuilder degrades to the oracle when `serving_mesh()` finds no
+backend, the port never does so on its own. `on_device=False` is the
+caller's explicit request for the oracle.
 """
 from __future__ import annotations
 
@@ -69,12 +71,19 @@ class RebuildStats:
     #: subset of `device` that resolved through the widened-K escalation
     #: ladder (capacity-flagged histories that stayed on the card)
     ladder: int = 0
+    #: subset of `device` served from the resident pool: an exact hit
+    #: hydrates with no replay, a suffix hit replays only appended batches
+    resident: int = 0
+    #: jobs whose resident entry was seeded from a persisted snapshot
+    snapshot_seeded: int = 0
     kernel_errors: Dict[int, int] = field(default_factory=dict)
 
     def merge(self, other: "RebuildStats") -> None:
         self.device += other.device
         self.oracle_fallback += other.oracle_fallback
         self.ladder += other.ladder
+        self.resident += other.resident
+        self.snapshot_seeded += other.snapshot_seeded
         for code, n in other.kernel_errors.items():
             self.kernel_errors[code] = self.kernel_errors.get(code, 0) + n
 
@@ -112,6 +121,19 @@ class DeviceRebuilder:
         #: device is resolved there, so constructing a rebuilder for an
         #: oracle-only caller never asks for the card)
         self.ladder = None
+        #: resident pool to consult before the device pass (a cluster wires
+        #: the engine's pool here); None skips the consult unless a
+        #: snapshot store is wired, which lazily makes one
+        self.resident = None
+        #: pack cache whose suffix path encodes resident appends
+        from .cache import PackCache
+        self.pack_cache = PackCache()
+        #: persisted-snapshot store (engine/snapshot.SnapshotStore) a
+        #: restart hydrates from
+        self.snapshots = None
+        #: key -> (snapshot batch count, persisted history_size) of this
+        #: rebuilder's seeds: history-size accounting in O(suffix)
+        self._snap_sizes: Dict[tuple, Tuple[int, int]] = {}
         #: max jobs per device launch (bounds the [W, E, L] corpus the same
         #: way the replay engine's chunking does)
         self.chunk_jobs = (chunk_jobs if chunk_jobs else
@@ -169,6 +191,16 @@ class DeviceRebuilder:
         if self.ladder is None:
             self.ladder = EscalationLadder(self.layout, registry=self.metrics, device=dev,
                                            mesh=mesh if mesh.size > 1 else None)
+        # persisted snapshots first (a warm restart): jobs with a valid
+        # record hydrate into the resident pool, so the prepass below
+        # serves them as exact or suffix hits
+        self._seed_from_snapshots(jobs, dev)
+        pre: Dict[int, MutableState] = self._resident_prepass(jobs)
+        positions = [i for i in range(len(jobs)) if i not in pre]
+        if pre:
+            jobs = [jobs[i] for i in positions]
+            if not jobs:
+                return [pre[i] for i in sorted(pre)]
         # rebuilds profile under their own scope, so a reset or recovery
         # storm is told apart from bulk-verify traffic
         prof = ReplayProfiler(self.metrics, scope=m.SCOPE_REBUILD)
@@ -277,7 +309,7 @@ class DeviceRebuilder:
         self.last_run = {"device": t1 - t0, "hydrate": t2 - t1,
                          "ladder": time.perf_counter() - t2}
         self._gauge_fallback_rate()
-        return out
+        return self._merge_prepass(pre, positions, out)
 
     def _gauge_fallback_rate(self) -> None:
         from ..utils import metrics as m
@@ -297,6 +329,135 @@ class DeviceRebuilder:
         merged = dict(pre)
         merged.update(zip(positions, device_out))
         return [merged[i] for i in range(len(merged))]
+
+    def _seed_from_snapshots(self, jobs, device) -> None:
+        """Hydrate persisted snapshots into the resident pool for every job
+        the pool does not already cover (one pool batch: the rows reach the
+        device together). A rebuilder without a wired pool makes its own
+        on `device`."""
+        from . import resident as resident_mod
+        from . import snapshot as snapshot_mod
+        from .cache import address_relation
+
+        if self.snapshots is None or not snapshot_mod.enabled() \
+                or not resident_mod.enabled() or not len(self.snapshots):
+            return
+        if self.resident is None:
+            self.resident = resident_mod.ResidentStateCache(
+                self.layout, ladder=self.ladder, registry=self.metrics, device=device)
+        with self.resident.batch():
+            for batches, _entry in jobs:
+                if not batches:
+                    continue
+                b0 = batches[0]
+                key = (b0.domain_id, b0.workflow_id, b0.run_id)
+                entry = self.resident.entry_for(key)
+                if entry is not None and address_relation(entry.address, batches) in (
+                        "exact", "prefix"):
+                    continue  # the pool already covers this lineage
+                if snapshot_mod.seed_from_batches(self.snapshots, self.resident,
+                                                  self.pack_cache, key, batches, self.layout,
+                                                  self.metrics):
+                    self.stats.snapshot_seeded += 1
+                    rec = self.snapshots.get(key)
+                    if rec is not None:
+                        self._snap_sizes[key] = (rec.batch_count, rec.history_size)
+
+    def _resident_prepass(self, jobs) -> Dict[int, MutableState]:
+        """Resolve jobs out of the resident pool: {job position: hydrated
+        MutableState} for every job it could serve, each checked against
+        the entry's canonical payload row (a mismatch leaves the job to the
+        device pass). Lookups are not authoritative: a rebuild may pass a
+        prefix of the stored history (a reset point)."""
+        from . import resident as resident_mod
+        from ..utils import metrics as m
+
+        cache = self.resident
+        if cache is None or not resident_mod.enabled():
+            return {}
+        resolved: List[tuple] = []  # (pos, key, batches, entry, resident entry)
+        suffix_items = []
+        suffix_jobs = []
+        for pos, (batches, entry) in enumerate(jobs):
+            if not batches:
+                continue
+            b0 = batches[0]
+            key = (b0.domain_id, b0.workflow_id, b0.run_id)
+            hit = cache.lookup(key, batches, authoritative=False)
+            if hit is None:
+                continue
+            kind, rentry = hit
+            if kind == "exact":
+                resolved.append((pos, key, batches, entry, rentry))
+            else:
+                suffix_items.append((key, rentry, batches))
+                suffix_jobs.append((pos, batches, entry))
+        if suffix_items:
+            outcomes = cache.replay_append(
+                suffix_items,
+                encode_suffix=self.pack_cache.encode_suffix if self.pack_cache is not None
+                else None)
+            for (pos, batches, entry), (key, _r, _b), res in zip(suffix_jobs, suffix_items,
+                                                                  outcomes):
+                if not res.ok:
+                    continue  # entry invalidated; the device pass takes it
+                hit2 = cache.lookup(key, batches, authoritative=False)
+                if hit2 is not None and hit2[0] == "exact":
+                    resolved.append((pos, key, batches, entry, hit2[1]))
+        pre = self._hydrate_resolved(resolved)
+        if pre:
+            self.stats.device += len(pre)
+            self.stats.resident += len(pre)
+            self.metrics.scope(m.SCOPE_REBUILD).inc(m.M_DEVICE_REBUILDS, len(pre))
+        return pre
+
+    def _hydrate_resolved(self, resolved) -> Dict[int, MutableState]:
+        """MutableStates of resident-served rows, each checked against its
+        entry's canonical payload. Base-rung rows come back 64 at a time
+        from each slab: one kernel-G gather and one copy per state tensor;
+        widened rows (other shapes) one by one. A row whose entry moved
+        since its lookup (the serving drain re-admitted or evicted it) is
+        left to the device pass."""
+        pre: Dict[int, MutableState] = {}
+
+        def hydrate_one(arrs, row, pos, key, batches, entry, rentry):
+            ms = self._hydrate(arrs, row, batches, entry,
+                               known_size=self._known_size(key, batches))
+            if ms is not None and (payload_row(ms, self.layout) == rentry.payload).all():
+                pre[pos] = ms
+
+        by_slab: Dict[int, list] = {}
+        for r in resolved:
+            if r[4].rung == 0:
+                by_slab.setdefault(id(r[4].slot.slab), []).append(r)
+        for base in by_slab.values():
+            for lo in range(0, len(base), 64):
+                group = base[lo:lo + 64]
+                state, kept = self.resident.gather_current([g[4] for g in group])
+                if kept:
+                    arrs = _host_state(state)
+                    for j, g in enumerate(kept):
+                        hydrate_one(arrs, j, *group[g])
+        for pos, key, batches, entry, rentry in resolved:
+            if rentry.rung != 0:
+                state, kept = self.resident.gather_current([rentry])
+                if kept:
+                    hydrate_one(_host_state(state), 0, pos, key, batches, entry, rentry)
+        return pre
+
+    def _known_size(self, key, batches) -> Optional[int]:
+        """history_size recovered from a persisted snapshot: the stored
+        accounting plus the since-snapshot suffix bytes, O(suffix). None
+        (full recomputation) when no snapshot seeded this key or the
+        batches involve a continue-as-new chain."""
+        info = self._snap_sizes.get(key)
+        if info is None:
+            return None
+        n, size = info
+        if n > len(batches) or any(b.new_run_events for b in batches):
+            return None
+        from ..core.codec import serialize_history
+        return size + sum(len(serialize_history([b])) for b in batches[n:])
 
     @staticmethod
     def _oracle_rebuild(batches, entry) -> MutableState:

@@ -28,14 +28,15 @@ executor's escalate hook right after that chunk's readback, and rungs
 >= 2 run once, batched. Only the ladder's residue and non-capacity
 errors go to the per-workflow oracle.
 
-Not ported yet, with the resident slice of the port: the HBM-resident
-state cache and its partition of verify_all's keys (`_partition_resident`:
-exact and suffix hits, snapshot hydration), `serving_scheduler`,
-`snapshotter` and `snapshot_sweep`. Until then `verify_all` is the JAX
-package's with CADENCE_TPU_RESIDENT=0, which on a fresh engine and fresh
-stores also gives the JAX default's first result (nothing is pinned and
-no snapshot exists, so every key is cold); `BulkVerifyResult.resident`
-and `.snapshot` stay empty.
+Before the cold path, the device-resident pool (engine/resident.py,
+sharded over the same mesh) partitions the keys: an unchanged history
+verifies against its pinned payload with no device work, an appended one
+replays only its new batches against the pinned state, and a key with a
+valid persisted snapshot hydrates into the pool first (engine/snapshot.py).
+The cold path's verified-clean rows are admitted from the escalate hook
+with one kernel-G scatter per chunk and shard. The serving scheduler
+(`serving_scheduler`) and the snapshot writer (`snapshotter`,
+`snapshot_sweep`) share the engine's pool.
 """
 from __future__ import annotations
 
@@ -60,6 +61,9 @@ from .cache import PackCache
 from .executor import BulkReplayExecutor, sync_devices
 from .ladder import EscalationLadder
 from .persistence import Stores
+from . import resident as resident_mod
+from .cache import content_address
+from .resident import ResidentStateCache
 
 #: max workflows per device launch on the bulk path; bounds peak host
 #: corpus bytes and device memory per chunk
@@ -84,11 +88,9 @@ class BulkVerifyResult:
     device_errors: List[Tuple[Tuple[str, str, str], int]] = field(default_factory=list)
     #: keys resolved on the devices by the widened-K re-replay ladder
     escalated: List[Tuple[str, str, str]] = field(default_factory=list)
-    #: keys served from the resident state cache (empty until the
-    #: resident slice is ported)
+    #: keys served from the resident state cache (exact or suffix hits)
     resident: List[Tuple[str, str, str]] = field(default_factory=list)
-    #: subset of `resident` hydrated from a persisted snapshot (empty
-    #: until the resident slice is ported)
+    #: subset of `resident` hydrated from a persisted snapshot
     snapshot: List[Tuple[str, str, str]] = field(default_factory=list)
 
     @property
@@ -125,6 +127,12 @@ class TPUReplayEngine:
         #: mesh's first device, sharded over the mesh when it has more
         #: than one), so constructing an engine never asks for the card
         self.ladder: Optional[EscalationLadder] = None
+        #: the device-resident pool verify_all serves unchanged and appended
+        #: workflows from, sharded over the mesh when it is wired
+        self.resident = ResidentStateCache(layout, pipeline_depth=pipeline_depth)
+        #: the serving scheduler and the snapshot writer, made on first use
+        self._serving = None
+        self._snapshotter = None
         self.metrics = m.DEFAULT_REGISTRY
         self.chunk_workflows = (chunk_workflows if chunk_workflows
                                 else int(os.environ.get(CHUNK_ENV, str(DEFAULT_CHUNK))))
@@ -135,9 +143,11 @@ class TPUReplayEngine:
         #: (W, E) of each chunk of the last bulk run: a long-tail history
         #: inflates only its own chunk's E
         self.last_run_chunk_shapes: List[Tuple[int, int]] = []
-        #: host seconds of the last verify_all: `expected_rows` (the live
-        #: states' payload rows, summed over the pack threads), `ladder`
-        #: (finish) and `arbitrate` (the result loop, oracle included)
+        #: host seconds of the last verify_all: `resident` (the partition
+        #: with snapshot hydration, the exact and suffix hits),
+        #: `expected_rows` (the live states' payload rows, summed over the
+        #: pack threads), `ladder` (finish) and `arbitrate` (the result
+        #: loop, oracle included)
         self.last_run: Dict[str, float] = {}
 
     @property
@@ -152,10 +162,37 @@ class TPUReplayEngine:
 
     def _wire_mesh(self, mesh) -> None:
         """One mesh through every layer: the ladder's rungs re-replay under
-        the same shard axis when the mesh has more than one device."""
+        the same shard axis when the mesh has more than one device, and the
+        resident pool splits into per-device slices."""
         self.ladder = EscalationLadder(self.layout, registry=self.metrics,
                                        device=mesh.devices[0],
                                        mesh=mesh if mesh.size > 1 else None)
+        self.resident.ladder = self.ladder
+        self.resident.set_mesh(mesh)
+
+    def serving_scheduler(self):
+        """The micro-batching transaction scheduler bound to this engine's
+        resident pool, pack cache, ladder and mesh (engine/serving.py): one
+        per engine, so a transaction's append and a verify's admit share
+        the pool."""
+        if self._serving is None:
+            from .serving import ServingScheduler
+            self._serving = ServingScheduler(self)
+        return self._serving
+
+    def snapshotter(self):
+        """The checksum-gated snapshot writer bound to this engine's stores,
+        resident pool and pack cache (engine/snapshot.py)."""
+        if self._snapshotter is None:
+            from .snapshot import Snapshotter
+            self._snapshotter = Snapshotter(self.stores, self.resident, self.pack_cache,
+                                            self.layout, registry=self.metrics)
+        return self._snapshotter
+
+    def snapshot_sweep(self, keys=None, force: bool = False):
+        """Persist snapshots for every resident workflow (or `keys`): run
+        after a verify pass seeds the pool, so the next start is warm."""
+        return self.snapshotter().sweep(keys=keys, force=force)
 
     @property
     def mesh_size(self) -> int:
@@ -173,6 +210,12 @@ class TPUReplayEngine:
         self.pack_cache.metrics = registry
         if self.ladder is not None:
             self.ladder.metrics = registry
+        if hasattr(self, "resident"):
+            self.resident.metrics = registry
+        if getattr(self, "_serving", None) is not None:
+            self._serving.metrics = registry
+        if getattr(self, "_snapshotter", None) is not None:
+            self._snapshotter.metrics = registry
 
     def tree_segments(self, key: Tuple[str, str, str]) -> list:
         """One run's full branch tree as encode_segments input: the current
@@ -378,31 +421,116 @@ class TPUReplayEngine:
         row[STICKY_ROW_INDEX] = 0
         return row, live_ms.version_histories.current_index
 
+    def _partition_resident(self, keys: List[Tuple[str, str, str]]):
+        """Split keys by what the resident pool can serve: exact hits (no
+        device work), suffix hits (replay appended batches only) and cold
+        keys for the full-replay path. Keys that are not single-lineage (an
+        NDC branch switch) and stale addresses invalidate their entries
+        here. A would-be-cold key with a valid persisted snapshot hydrates
+        into the pool first and re-partitions as a hit; the hydrations of
+        one call reach the device together (one pool batch). Returns
+        (exact, suffix, cold, cold addresses, hydrated keys)."""
+        from . import snapshot as snapshot_mod
+
+        exact: List[Tuple[Tuple[str, str, str], object]] = []
+        suffix: List[Tuple[Tuple[str, str, str], object, list]] = []
+        cold: List[Tuple[str, str, str]] = []
+        addresses: dict = {}
+        hydrated: List[Tuple[str, str, str]] = []
+        snapshots = getattr(self.stores, "snapshot", None)
+        hs = self.stores.history
+        with self.resident.batch():
+            for key in keys:
+                if hs.branch_count(*key) > 1 or hs.get_current_branch(*key) != 0:
+                    self.resident.invalidate(key)  # NDC branch switch
+                    cold.append(key)
+                    continue
+                batches = hs.as_history_batches(*key)
+                hit = self.resident.lookup(key, batches)
+                if hit is None and snapshot_mod.seed_from_batches(
+                        snapshots, self.resident, self.pack_cache, key, batches, self.layout,
+                        self.metrics):
+                    hit = self.resident.lookup(key, batches)
+                    if hit is not None:
+                        hydrated.append(key)
+                if hit is None:
+                    addresses[key] = content_address(batches)
+                    cold.append(key)
+                elif hit[0] == "exact":
+                    exact.append((key, hit[1]))
+                else:
+                    suffix.append((key, hit[1], batches))
+        return exact, suffix, cold, addresses, hydrated
+
     def verify_all(self, keys: Optional[Sequence[Tuple[str, str, str]]] = None
                    ) -> BulkVerifyResult:
         """Replay persisted histories on the devices and compare with the
-        live mutable states (zero-divergence contract). The compare runs on
-        the devices: the expected rows ship with the corpus, and the host
-        reads back a mismatch bitmap and, where kernel F's counts show a
-        row with an error, the error lanes.
+        live mutable states (zero-divergence contract).
 
-        Capacity-flagged rows escalate through the widened-K ladder: their
-        rung-1 replay is submitted from the executor's escalate hook as
-        each chunk's errors read back, and rungs >= 2 run once, batched
-        across all chunks' survivors. Rows the ladder resolves verify
-        against the live state at the base payload width; only the
-        ladder's residue and non-capacity errors re-run through the
-        per-workflow oracle. Every key is cold: the resident partition
-        comes with the resident slice (see the module docstring)."""
+        Resident keys first: an unchanged history verifies against the
+        pinned payload with no device work, an appended one replays only
+        its new batches against the pinned state (the resident pool's
+        replay_append), and a failed append goes to the oracle. The cold
+        keys run the chunked path: the expected rows ship with the corpus,
+        the host reads back a mismatch bitmap and, where kernel F's counts
+        show a row with an error, the error lanes; each chunk's
+        verified-clean rows are admitted to the pool from the escalate
+        hook. Capacity-flagged rows escalate through the widened-K ladder:
+        their rung-1 replay is submitted from the same hook, and rungs >= 2
+        run once, batched across all chunks' survivors. Rows the ladder
+        resolves verify against the live state at the base payload width;
+        only the ladder's residue and non-capacity errors re-run through
+        the per-workflow oracle."""
         from ..parallel.mesh import place_corpus, run_shards
 
         if keys is None:
             keys = self.stores.execution.list_executions()
-        keys = list(keys)
-        if not keys:
+        all_keys = list(keys)
+        if not all_keys:
             return BulkVerifyResult(total=0, verified_on_device=0)
+        # resolve (and wire) the mesh before the resident partition: the
+        # pool's shard structure must be bound before any lookup or admit
         mesh = self.mesh
-        result = BulkVerifyResult(total=len(keys), verified_on_device=0)
+        t_start = time.perf_counter()
+        self.last_run = {"resident": 0.0, "expected_rows": 0.0, "ladder": 0.0, "arbitrate": 0.0}
+        result = BulkVerifyResult(total=len(all_keys), verified_on_device=0)
+        if resident_mod.enabled():
+            exact, suffix, keys, addresses, hydrated = self._partition_resident(all_keys)
+            result.snapshot = hydrated
+        else:
+            exact, suffix, keys, addresses = [], [], all_keys, {}
+
+        for key, entry in exact:
+            row, br = self._expected_row(key)
+            result.verified_on_device += 1
+            result.resident.append(key)
+            if not (entry.payload == row).all() or entry.branch != br:
+                result.divergent.append(key)
+
+        if suffix:
+            outcomes = self.resident.replay_append(suffix,
+                                                   encode_suffix=self.pack_cache.encode_suffix)
+            for (key, _entry, batches), res in zip(suffix, outcomes):
+                row, br = self._expected_row(key)
+                if not res.ok:
+                    # entry already invalidated; the per-workflow oracle
+                    # arbitrates, as for the cold path's residue
+                    result.device_errors.append((key, int(res.error)))
+                    result.fallback.append(key)
+                    oracle_ms = StateBuilder().replay_history(batches)
+                    if not (payload_row(oracle_ms, self.layout) == row).all():
+                        result.divergent.append(key)
+                    continue
+                result.verified_on_device += 1
+                result.resident.append(key)
+                if res.escalated:
+                    result.escalated.append(key)
+                if not (res.payload == row).all() or res.branch != br:
+                    result.divergent.append(key)
+        self.last_run["resident"] = time.perf_counter() - t_start
+
+        if not keys:
+            return result
         #: ci -> (capacity-flagged local key indices, pending rung-1 launch)
         pending: dict = {}
         expected_seconds: List[float] = []
@@ -424,7 +552,7 @@ class TPUReplayEngine:
             state = replay_events(ev, self.layout, dev)
             rows_dev = payload_rows(state, self.layout)
             mismatch = verify_rows(rows_dev, exp, state.current_branch, exp_br, device=dev)
-            return mismatch, state.error, stats(state.error, state.close_status)
+            return mismatch, state, stats(state.error, state.close_status)
 
         def launch(parts, extras):
             expected, exp_branch = extras
@@ -438,12 +566,13 @@ class TPUReplayEngine:
             # the error lanes come back only from shards whose counts
             # (16 bytes) show a row with an error
             errors = np.concatenate([
-                err.cpu().numpy() if int(counts[0]) else np.zeros(err.shape[0], np.int32)
-                for _, err, counts in outs])
-            return mismatch, errors, expected, exp_branch
+                st.error.cpu().numpy() if int(counts[0])
+                else np.zeros(st.error.shape[0], np.int32)
+                for _, st, counts in outs])
+            return mismatch, errors, expected, exp_branch, [st for _, st, _ in outs]
 
         def escalate(ci, corpus, consumed):
-            errors = consumed[1]
+            mismatch, errors, expected, exp_branch, states = consumed
             plan = plans[ci]
             # errors come back in row space; flag capacity overflow on real
             # rows only and remember the flagged keys' positions
@@ -451,7 +580,20 @@ class TPUReplayEngine:
             if len(cap_local):
                 cap_rows = np.asarray(plan.rows)[cap_local]
                 pending[ci] = (cap_local, self.ladder.submit(gather_subcorpus(corpus, cap_rows)))
-            return consumed
+            # admit the chunk's verified-clean rows: the device row equals
+            # the shipped expected row wherever the mismatch bit is clear.
+            # One pool batch: the bookkeeping in key order, then one
+            # kernel-G scatter per shard for the rows still resident.
+            per_shard = plan.W // mesh.size
+            with self.resident.batch():
+                for j, i in enumerate(plan.idx):
+                    key = keys[i]
+                    r = int(plan.rows[j])
+                    if errors[r] == 0 and not mismatch[r] and key in addresses:
+                        self.resident.admit_row(key, addresses[key], states[r // per_shard],
+                                                r % per_shard, expected[r].copy(),
+                                                int(exp_branch[r]))
+            return mismatch, errors, expected, exp_branch
 
         plans = self._plan_chunks(keys)
         results, plans = self._run_chunks(keys, pack_extra, launch, readback, escalate,
@@ -492,6 +634,6 @@ class TPUReplayEngine:
                     result.verified_on_device += 1
                     if mismatch[r]:
                         result.divergent.append(key)
-        self.last_run = {"expected_rows": sum(expected_seconds), "ladder": t1 - t0,
-                         "arbitrate": time.perf_counter() - t1}
+        self.last_run.update(expected_rows=sum(expected_seconds), ladder=t1 - t0,
+                             arbitrate=time.perf_counter() - t1)
         return result

@@ -128,6 +128,13 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_verify_rows.argtypes = [P, P, P, P, P, L, I, P]
     lib.cadence_stats.restype = I
     lib.cadence_stats.argtypes = [P, P, P, L, P]  # error, close_status, out, W, stream
+    lib.cadence_rehome.restype = I
+    # src pointer table, K_in[5], B_in, Kv_in, dst pointer table, K_out[5], B_out, Kv_out,
+    # src_rows, dst_rows, n, field init values, field element sizes, stream
+    lib.cadence_rehome.argtypes = [P, P, I, I, P, P, I, I, P, P, L, P, P, P]
+    lib.cadence_narrow_ok.restype = I
+    # state pointer table, K_in[5], B_in, Kv_in, K_out[5], B_out, Kv_out, out, W, stream
+    lib.cadence_narrow_ok.argtypes = [P, P, I, I, P, I, I, P, L, P]
 
 
 def load() -> ctypes.CDLL:
@@ -150,7 +157,7 @@ def check(rc: int, what: str) -> None:
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
 launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "payload": 0, "crc32": 0,
-            "verify_rows": 0, "decode_wirec": 0, "stats": 0}
+            "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0}
 
 
 def reset_launches() -> None:

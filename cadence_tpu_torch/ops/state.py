@@ -296,19 +296,93 @@ def layout_of(s: ReplayState) -> PayloadLayout:
     )
 
 
+def empty_state(num_workflows: int, layout: PayloadLayout, device) -> ReplayState:
+    """Uninitialised state tensors for W workflows at `layout` on `device`:
+    the output of a re-home that writes every row."""
+    return map_state(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device),
+                     init_state(num_workflows, layout, "meta"))
+
+
+def rehome_plain(src: ReplayState, src_rows, out_layout: PayloadLayout,
+                 dst: ReplayState = None, dst_rows=None) -> ReplayState:
+    """Plain PyTorch version of kernel G (ops/rehome.py): out row i is
+    src[src_rows[i]] re-homed at `out_layout`, every slot below the
+    source's capacities copied and every other slot, and every slot of a
+    row whose source is -1, at its init_state value; slots past the out
+    capacities are dropped. With `dst` (at `out_layout`) the rows are
+    written to dst[dst_rows[i]] and `dst` is returned; otherwise a new
+    state of len(src_rows) rows."""
+    dev = src.state.device
+    rows = torch.as_tensor(src_rows, dtype=I64).to(dev)
+    n = rows.shape[0]
+    fresh = init_state(n, out_layout, dev)
+    valid = rows >= 0
+    idx = rows.clamp(min=0) if src.state.shape[0] else None
+
+    def one(cur, new):
+        if idx is None:
+            return new
+        got = cur.index_select(0, idx)
+        common = (slice(None),) + tuple(slice(0, min(a, b))
+                                        for a, b in zip(got.shape[1:], new.shape[1:]))
+        m = valid.reshape((-1,) + (1,) * (got.dim() - 1))
+        new[common] = torch.where(m, got[common], new[common])
+        return new
+
+    out = map_state(one, src, fresh)
+    if dst is None:
+        return out
+    at = torch.as_tensor(dst_rows, dtype=I64).to(dev)
+    for (_, d), (_, r) in zip(leaves(dst), leaves(out)):
+        d.index_copy_(0, at, r)
+    return dst
+
+
 def widen_state(s: ReplayState, out_layout: PayloadLayout) -> ReplayState:
     """Re-home a state at a WIDER layout: occupied slots keep their
-    indices, new slots are empty (occ False, PAD version-history items)."""
-    fresh = init_state(s.state.shape[0], out_layout, s.state.device)
+    indices, new slots are empty (occ False, PAD version-history items).
+    Kernel G on the card, rehome_plain on the CPU."""
+    from .rehome import rehome
 
-    def widen(cur, new):
-        if cur.shape == new.shape:
-            return cur.clone()
-        out = new.clone()
-        out[tuple(slice(0, d) for d in cur.shape)] = cur
-        return out
+    return rehome(s, torch.arange(s.state.shape[0]), out_layout)
 
-    return map_state(widen, s, fresh)
+
+def narrow_ok_plain(s: ReplayState, out_layout: PayloadLayout) -> torch.Tensor:
+    """Plain PyTorch version of kernel H: [W] bool, the rows whose state
+    fits `out_layout` exactly (no occupied table slot, version-history
+    item or branch past the narrow capacities), so narrow_state on them
+    loses nothing."""
+    Kv = out_layout.max_version_history_items
+    B = out_layout.max_branches
+    ok = s.current_branch < B
+    if s.vh_count.shape[1] > B:
+        ok &= (s.vh_count[:, B:] == 0).all(dim=1)
+    ok &= (s.vh_count <= Kv).all(dim=1)
+    for table, cap in ((s.activities, out_layout.max_activities),
+                       (s.timers, out_layout.max_timers),
+                       (s.children, out_layout.max_children),
+                       (s.cancels, out_layout.max_request_cancels),
+                       (s.signals, out_layout.max_signals)):
+        if table.occ.shape[1] > cap:
+            ok &= ~table.occ[:, cap:].any(dim=1)
+    return ok
+
+
+def narrow_ok(s: ReplayState, out_layout: PayloadLayout) -> torch.Tensor:
+    """[W] bool of rows that narrow_state keeps whole: kernel H on the
+    card, narrow_ok_plain on the CPU."""
+    from .rehome import narrow_ok as kernel
+
+    return kernel(s, out_layout)
+
+
+def narrow_state(s: ReplayState, out_layout: PayloadLayout) -> ReplayState:
+    """Slice a widened state down to `out_layout`. Valid only for rows
+    where narrow_ok holds: slots past the narrow capacities are dropped.
+    Kernel G on the card, rehome_plain on the CPU."""
+    from .rehome import rehome
+
+    return rehome(s, torch.arange(s.state.shape[0]), out_layout)
 
 
 def reset_rows(s: ReplayState, mask: torch.Tensor) -> ReplayState:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.checksum import DEFAULT_LAYOUT, PayloadLayout
-from ..device import resolve_device
+from ..device import canonical_device, resolve_device
 from ..ops.crc import crc32_rows
 from ..ops.payload import payload_rows
 from ..ops.replay import (replay_escalated, replay_events, replay_events32, replay_wirec,
@@ -47,10 +47,11 @@ MESH_DEVICES_ENV = "CADENCE_TPU_MESH_DEVICES"
 
 class Mesh:
     """A 1-D mesh: the devices the 'shard' axis partitions the workflow
-    axis over, in mesh order."""
+    axis over, in mesh order. Devices are kept as their tensors name them
+    (device.canonical_device): "cuda" becomes the current card's index."""
 
     def __init__(self, devices: Sequence) -> None:
-        self.devices: Tuple[torch.device, ...] = tuple(torch.device(d) for d in devices)
+        self.devices: Tuple[torch.device, ...] = tuple(canonical_device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
 

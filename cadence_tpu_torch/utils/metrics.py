@@ -2,8 +2,8 @@
 part of the JAX package's utils/metrics.py that the port's device layers
 write to (the escalation ladder, the native wirec dispatcher, the bulk
 executor, the device rebuilder, the replay engine, the pack cache, the
-snapshot store and the replay profiler), under the same scope and metric
-names.
+resident pool, the serving scheduler, the snapshot tier and the replay
+profiler), under the same scope and metric names.
 
 Histograms are fixed-bucket (prometheus `le` semantics) with interpolated
 percentiles, as in the JAX package; the Prometheus text exposition of the
@@ -35,6 +35,14 @@ SCOPE_TPU_EXECUTOR = "tpu.executor"
 #: persisted mutable-state snapshots (engine/snapshot.py): records found
 #: stale or torn are counted and never served
 SCOPE_TPU_SNAPSHOT = "tpu.snapshot"
+#: the HBM-resident state pool (engine/resident.py ResidentStateCache):
+#: exact and suffix hits, misses, invalidations, evictions, events
+#: appended, widened and re-narrowed rows, and the bytes/entries/budget
+#: gauges (with a -dev{d} bytes series under a sharded pool)
+SCOPE_TPU_RESIDENT = "tpu.resident"
+#: the micro-batching serving scheduler (engine/serving.py): committed
+#: transactions coalesce into one from-state launch per owning device
+SCOPE_TPU_SERVING = "tpu.serving"
 #: the native (C++) wirec encoder seam (native/wirec.py): the `available`
 #: gauge says whether the compiled library loads in this process,
 #: native-packs / python-packs count which encoder served each pack
@@ -59,8 +67,7 @@ M_PROFILE_PACK_WAIT = "pack-queue-wait"
 #: gather + widened-K re-replay of flagged rows (engine/ladder.py),
 #: observed in seconds per rung
 M_PROFILE_FALLBACK = "fallback"
-#: the serving tier's flush leg, kept in the profiler's leg list for the
-#: JAX package's order (the port's serving tier is a later slice)
+#: the serving tier's flush leg (engine/serving.py), per drain cycle
 M_PROFILE_SERVING = "serving"
 M_H2D_BYTES = "h2d-bytes"
 #: rows entering the ladder, rows resolved on the card, rows left for
@@ -78,9 +85,45 @@ M_CACHE_HITS = "hits"
 M_CACHE_MISSES = "misses"
 M_CACHE_EVICTIONS = "evictions"
 M_CACHE_SUFFIX_PACKS = "suffix-packs"
-#: snapshot records skipped as stale (format or layout) or torn (blob CRC)
+#: resident-pool counters and gauges (SCOPE_TPU_RESIDENT; hits, misses
+#: and evictions under the pack cache's names above): invalidations count
+#: stale entries dropped on a tail overwrite, reset or NDC branch switch
+M_CACHE_INVALIDATIONS = "invalidations"
+M_RESIDENT_SUFFIX_HITS = "suffix-hits"
+M_RESIDENT_BYTES = "resident-bytes"
+M_RESIDENT_ENTRIES = "resident-entries"
+M_RESIDENT_BUDGET_BYTES = "budget-bytes"
+M_RESIDENT_EVENTS_APPENDED = "events-appended"
+M_RESIDENT_WIDENED = "widened-rows"
+M_RESIDENT_NARROWED = "renarrowed-rows"
+#: serving-tier counters, histograms and the queue gauge
+#: (SCOPE_TPU_SERVING): transactions / batched-launches is the coalescing
+#: factor; parity-divergence counts device payloads that disagreed with
+#: the oracle's committed row (the entry is dropped, never served)
+M_SERVING_TXNS = "transactions"
+M_SERVING_LAUNCHES = "batched-launches"
+M_SERVING_COALESCED = "coalesced-appends"
+M_SERVING_BATCH_SIZE = "batch-size"
+M_SERVING_QUEUE_WAIT = "queue-wait"
+M_SERVING_DIVERGENCE = "parity-divergence"
+M_SERVING_EXACT = "exact-serves"
+M_SERVING_SUFFIX = "suffix-appends"
+M_SERVING_COLD = "cold-admits"
+M_SERVING_BYPASSED = "bypassed"
+M_SERVING_REQUEUED = "requeued"
+M_SERVING_REJECTED = "busy-rejections"
+M_SERVING_QUEUE_DEPTH = "queue-depth"
+#: snapshot tier (SCOPE_TPU_SNAPSHOT): checksum-gated writes, writes
+#: refused by the checksum gate, hydrations into the resident pool,
+#: records skipped as stale (format, layout or address) or torn (blob
+#: CRC), and the store's occupancy gauges
+M_SNAP_WRITES = "writes"
+M_SNAP_CHECKSUM_SKIPS = "checksum-skips"
+M_SNAP_HYDRATES = "hydrates"
 M_SNAP_IGNORED_STALE = "ignored-stale"
 M_SNAP_IGNORED_TORN = "ignored-torn"
+M_SNAP_BYTES = "snapshot-bytes"
+M_SNAP_ENTRIES = "snapshot-entries"
 M_NATIVE_AVAILABLE = "available"
 M_NATIVE_PACKS = "native-packs"
 M_NATIVE_PY_PACKS = "python-packs"

@@ -8,7 +8,7 @@ Phases, one JSON line each:
   1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
      (cadence_tpu_torch/device.py report); build the kernels (csrc/*.cu)
      from this checkout.
-  2. main path, configuration `suites-16k`: the five corpus suites x 16,384
+  2. main path, configuration `suites-8k`: the five corpus suites x 8,192
      distinct workflows (seed 20260730, target_events 120), generated in a
      process pool, then replay_corpus(..., device="cuda"), replay_to_crc32 on
      the wire32 lanes and a verify_rows pass. Device CRCs and rows are held
@@ -37,7 +37,9 @@ Phases, one JSON line each:
      (decode_wirec), which must also give the lanes themselves and,
      replayed by kernel A, the fused reader's state, and kernel F (stats,
      a shard's error and closed counts) with torch.count_nonzero as its
-     yardstick.
+     yardstick, kernel G (rehome: a 4,096-row gather, scatter, widen and
+     narrow with init rows) with one index_select per state tensor as its
+     yardstick, and kernel H (narrow_ok on a widened state).
   4. the paths the suites never reach: the `overflow` suite, continue-as-new
      chains, divergent branch trees and a lane-level random corpus (also
      packed as wirec, whole and split into a carried prefix and a suffix);
@@ -68,9 +70,38 @@ Phases, one JSON line each:
      exactly the keys with a non-capacity error; then verify_all on a mesh
      of two slices of the card over 4,096 of the keys must equal the mesh
      of 1 on them. Prints the executor's legs, the ladder's rungs, the host
-     seconds of the expected rows, the wall time and workflows/s.
+     seconds of the expected rows, the wall time and workflows/s. The
+     resident tier is on (its default): the first verify_all also admits
+     every clean row to the pool (kernel G), whose entries, counted bytes
+     and slab bytes are printed.
+  8. resident_path: the same 24,576 histories stored cut after the first
+     ceil(2/3) of their batches, a flooded overflow history before its
+     flood (live states: the oracle's at the cut),
+     through one engine: (a) a cold verify_all admits every clean key;
+     (b) the held-back batches land with the final live states, and every
+     admitted key must verify as a suffix hit (overflowing suffixes through
+     escalate_resident), `divergent` empty, `escalated` and `fallback`
+     exactly verify_path's; (c) verify_path's 64 alterations, and
+     `divergent` must be exactly them, kernel A launched for the keys that
+     are not resident only; (d) snapshot_sweep(force=True) and a fresh
+     engine on the same stores, whose verify_all must hydrate exactly the
+     keys written and give (c)'s divergent and fallback lists (escalated:
+     (c)'s plus the overflowing keys (c) served that the sweep did not
+     write: widened entries, altered live states).
+  9. serving_path: one ServingScheduler over 4,096 workflows (1,024 each of
+     echo_signal, timer_retry, concurrent_child and overflow) stored up to
+     their last 8 batches (a flooded overflow history up to the batch
+     before its flood);
+     eight threads commit each remaining batch as a
+     transaction (append to the store, upsert the oracle's state, submit
+     with the batch), about 33,000 transactions, a workflow's next one
+     once its previous ticket resolved. Parity divergence must be
+     0, every ticket resolved, a not-ok ticket only a `device-error:` code,
+     and every resident entry's payload and device state the oracle's final
+     row. Prints transactions/s, flushes, coalescing, queue-wait and flush
+     percentiles and the path counts.
 Each driven path (main path, wirec_path, fallback_ladder, rebuild_path,
-verify_path)
+verify_path, resident_path, serving_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched. The last lines are the launch
 counts, the card's name and power limit, the per-kernel table, and
@@ -105,10 +136,17 @@ DEVICE = "cuda"
 MAIN_PATH_KERNELS = ("replay", "payload", "crc32", "verify_rows", "stats")
 WIREC_PATH_KERNELS = ("replay_wirec", "payload", "crc32")
 REBUILD_PATH_KERNELS = ("replay_tasks", "payload", "replay")
-VERIFY_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats")
+VERIFY_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats", "rehome")
+RESIDENT_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats", "rehome", "narrow_ok")
+SERVING_PATH_KERNELS = ("replay", "payload", "rehome", "narrow_ok")
 #: verify_path's suites beside the overflow suite (whose workflows are
 #: mostly gen_basic's)
 VERIFY_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "ndc")
+#: serving_path's suites (the overflow suite's appends overflow inside the
+#: scheduler)
+SERVING_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "overflow")
+#: serving_path's submitter threads
+SERVING_THREADS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -174,6 +212,80 @@ def _gen_states(task):
     suite, start, count = task
     return [StateBuilder().replay_history(generate_history(suite, SEED, i, TARGET_EVENTS))
             for i in range(start, start + count)]
+
+
+def flood_batch(h) -> int:
+    """Index of the first batch that schedules more activities than the
+    base layout's table holds (the overflow suite's flood, always its
+    third batch), or len(h)."""
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT
+    from cadence_tpu_torch.core.enums import EventType
+
+    for i, b in enumerate(h):
+        if sum(e.event_type == EventType.ActivityTaskScheduled
+               for e in b.events) > DEFAULT_LAYOUT.max_activities:
+            return i
+    return len(h)
+
+
+def resident_cut(h) -> int:
+    """resident_path's cut: the first ceil(2/3) of a history's batches, or
+    the batches before its flood, so the flood arrives as an append that
+    overflows the pinned state (escalate_resident, kernels G and H)."""
+    return min(-(-2 * len(h) // 3), flood_batch(h))
+
+
+def serving_cut(h) -> int:
+    """serving_path's cut: all but the last 8 batches (or the first batch),
+    or all but the last batch before the flood: that batch's transaction
+    pins the state, and the flood then overflows it inside the scheduler."""
+    return min(len(h) - 8 if len(h) > 8 else 1, max(1, flood_batch(h) - 1))
+
+
+def _gen_cut_states(task):
+    """resident_path's live states at the cut: the oracle's MutableState of
+    each history's first resident_cut batches."""
+    from cadence_tpu_torch.gen.corpus import generate_history
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    suite, start, count = task
+    out = []
+    for i in range(start, start + count):
+        h = generate_history(suite, SEED, i, TARGET_EVENTS)
+        out.append(StateBuilder().replay_history(h[:resident_cut(h)]))
+    return out
+
+
+def _gen_serving(task):
+    """serving_path's workflows: (history, the oracle's MutableState at the
+    serving cut, [(expected row, branch) after each later batch, or None
+    where the oracle's state does not fit the payload row])."""
+    import copy
+
+    from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+    from cadence_tpu_torch.gen.corpus import generate_history
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    suite, start, count = task
+    out = []
+    for i in range(start, start + count):
+        h = generate_history(suite, SEED, i, TARGET_EVENTS)
+        cut = serving_cut(h)
+        sb = StateBuilder()
+        sb.replay_history(h[:cut])
+        at_cut = copy.deepcopy(sb.ms)
+        expected = []
+        for b in h[cut:]:
+            sb.apply_batch(b)
+            try:
+                row = payload_row(sb.ms)
+            except OverflowError:  # the state outgrows the payload here
+                expected.append(None)
+                continue
+            row[STICKY_ROW_INDEX] = 0
+            expected.append((row, sb.ms.version_histories.current_index))
+        out.append((h, at_cut, expected))
+    return out
 
 
 def _gen_chains(task):
@@ -270,13 +382,19 @@ def generate(args):
     ttasks = [(s, n, 40) for s, n in _chunks(args.trees, 1024)]
     vtasks = [(suite, s, n) for suite in VERIFY_SUITES
               for s, n in _chunks(args.verify_per_suite, 512)]
+    rtasks = ([("overflow", s, n) for s, n in _chunks(args.overflow, 1024)]
+              + [(suite, s, n) for suite in VERIFY_SUITES
+                 for s, n in _chunks(args.verify_per_suite, 512)])
+    stasks = [(suite, s, n) for suite in SERVING_SUITES
+              for s, n in _chunks(args.serving_per_suite, 256)]
 
     t0 = time.perf_counter()
     with mp.get_context("spawn").Pool(os.cpu_count()) as pool:
         pending = [pool.map_async(fn, ts, chunksize=1) for fn, ts in (
             (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks),
-            (_gen_states, vtasks))]
-        main_parts, over_parts, chain_parts, tree_parts, state_parts = (p.get() for p in pending)
+            (_gen_states, vtasks), (_gen_cut_states, rtasks), (_gen_serving, stasks))]
+        (main_parts, over_parts, chain_parts, tree_parts, state_parts, cut_parts,
+         serving_parts) = (p.get() for p in pending)
     histories, oracle = _concat(tasks, main_parts)
     over_h, over_oracle = _concat(otasks, over_parts)
     chain_lanes, chain_oracle = _concat(ctasks, chain_parts)
@@ -286,6 +404,8 @@ def generate(args):
         "chains": np.stack(chain_lanes), "chain_oracle": chain_oracle,
         "trees": np.stack([x for part in tree_parts for x in part]),
         "verify_states": [ms for part in state_parts for ms in part],
+        "cut_states": [ms for part in cut_parts for ms in part],
+        "serving": [w for part in serving_parts for w in part],
         "seconds": time.perf_counter() - t0,
     }
 
@@ -484,13 +604,40 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
-def verify_path(args, corp, rebuilt, escalated, residual) -> dict:
+def alter_live_states(stores, keys, rng) -> list:
+    """64 live states altered, each replaced by an altered copy: 32 payload
+    fields, 32 current-branch indices (a duplicate branch made current:
+    the same row, another branch). Returns the altered keys."""
+    import copy
+
+    altered = [keys[int(i)] for i in rng.choice(len(keys), 64, replace=False)]
+    for n, key in enumerate(altered):
+        ms = copy.deepcopy(stores.execution.get_workflow(*key))
+        if n < 32:
+            ms.execution_info.signal_count += 1
+        else:
+            vhs = ms.version_histories
+            vhs.histories.append(copy.deepcopy(vhs.histories[vhs.current_index]))
+            vhs.current_index = len(vhs.histories) - 1
+        stores.execution.upsert_workflow(ms)
+    return altered
+
+
+def pool_stats(resident) -> dict:
+    """The resident pool's entries, the bytes its budget counts (the JAX
+    package's accounting), the bytes its slabs hold on the card, and the
+    rows it took in through the host (snapshot hydration only)."""
+    return {"entries": len(resident), "counted_bytes": resident.resident_bytes,
+            "slab_bytes": resident.slab_bytes,
+            "widened_entries": resident.stats()["widened_entries"],
+            "host_rows": resident.host_rows}
+
+
+def verify_path(args, corp, rebuilt, escalated, residual):
     """Phase 7: TPUReplayEngine.verify_all over Stores, as an operator's
     `admin verify` runs it. `escalated` and `residual` are the overflow
     rows fallback_ladder resolved on the card and left for the oracle.
-    Returns the launch counts of the run."""
-    import copy
-
+    Returns (the launch counts of the run, what resident_path reuses)."""
     import numpy as np
     import torch
 
@@ -517,18 +664,8 @@ def verify_path(args, corp, rebuilt, escalated, residual) -> dict:
         keys.append(key)
     if len(keys) != len(live) or stores.execution.list_executions() != keys:
         fail("verify_path: the live states' keys differ from the histories'")
-    # 64 live states altered: 32 payload fields, 32 current-branch indices
-    # (a duplicate branch made current: the same row, another branch)
     rng = np.random.default_rng(SEED)
-    altered = [keys[int(i)] for i in rng.choice(len(keys), 64, replace=False)]
-    for n, key in enumerate(altered):
-        ms = stores.execution.get_workflow(*key)
-        if n < 32:
-            ms.execution_info.signal_count += 1
-        else:
-            vhs = ms.version_histories
-            vhs.histories.append(copy.deepcopy(vhs.histories[vhs.current_index]))
-            vhs.current_index = len(vhs.histories) - 1
+    altered = alter_live_states(stores, keys, rng)
     t_stores = time.perf_counter() - t0
 
     over_keys = keys[:len(corp["overflow"])]
@@ -563,9 +700,17 @@ def verify_path(args, corp, rebuilt, escalated, residual) -> dict:
                                                    replace=False))]
     engine2 = TPUReplayEngine(stores, chunk_workflows=4096,
                               mesh=Mesh([torch.device(DEVICE)] * 2))
+    torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.perf_counter()
     res2 = engine2.verify_all(sub)
     t_mesh2 = time.perf_counter() - t0
+    launches2 = dict(_build.launches)
+    check_launches(launches2, "verify_path (mesh of 2)", VERIFY_PATH_KERNELS)
+    # rows from the card into slabs on the card go through kernel G alone
+    if engine.resident.host_rows or engine2.resident.host_rows:
+        fail(f"verify_path: {engine.resident.host_rows} + {engine2.resident.host_rows} rows "
+             "admitted through the host")
     in_sub = set(sub)
     for name in ("divergent", "fallback", "escalated", "device_errors"):
         want = sorted(x for x in getattr(res, name)
@@ -574,6 +719,10 @@ def verify_path(args, corp, rebuilt, escalated, residual) -> dict:
             fail(f"verify_path: the mesh of 2 differs from the mesh of 1 on {name}")
     if res2.total != len(sub) or res2.verified_on_device != len(sub) - len(res2.fallback):
         fail("verify_path: the mesh of 2 verified another count than the mesh of 1")
+    pool = pool_stats(engine.resident)
+    if pool["entries"] != (res.verified_on_device - len(res.escalated)
+                           - len(set(res.divergent) - set(res.escalated))):
+        fail(f"verify_path: {pool['entries']} keys admitted, not every verified-clean key")
     emit("verify_path", workflows=len(keys), overflow=len(over_keys), per_suite=per,
          suites=list(VERIFY_SUITES), chunk_workflows=engine.chunk_workflows,
          chunk_shapes=engine.last_run_chunk_shapes, verified_on_device=res.verified_on_device,
@@ -585,7 +734,272 @@ def verify_path(args, corp, rebuilt, escalated, residual) -> dict:
          ladder_rungs=list(engine.ladder.last_run), launches=launches,
          mesh2={"workflows": len(sub), "seconds": t_mesh2, "divergent": len(res2.divergent),
                 "escalated": len(res2.escalated), "chunks": len(engine2.last_run_chunk_shapes),
-                "equal_to_mesh_of_1": True})
+                "equal_to_mesh_of_1": True, "launches": launches2,
+                "resident_pool": pool_stats(engine2.resident)}, resident_pool=pool)
+    return launches, {"hists": hists, "live": live, "keys": keys,
+                      "want_escalated": want_escalated, "want_fallback": want_fallback}
+
+
+def resident_path(args, corp, ctx):
+    """Phase 8: the resident tier through one engine, over verify_path's
+    histories stored at resident_cut (their live states the oracle's
+    there). Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.engine.persistence import Stores
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.utils import metrics as M
+
+    hists, keys = ctx["hists"], ctx["keys"]
+    stores = Stores()
+    for key, h, ms in zip(keys, hists, corp["cut_states"]):
+        for b in h[:resident_cut(h)]:
+            stores.history.append_batch(*key, list(b.events))
+        stores.execution.upsert_workflow(ms)
+    M.DEFAULT_REGISTRY.reset()
+    engine = TPUReplayEngine(stores, chunk_workflows=4096)
+    counter = lambda name: M.DEFAULT_REGISTRY.counter(M.SCOPE_TPU_RESIDENT, name)  # noqa: E731
+    steps = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    def step(name, fn):
+        before = dict(_build.launches)
+        ev0 = counter(M.M_RESIDENT_EVENTS_APPENDED)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps[name] = {"seconds": dt, "workflows_per_s": len(keys) / dt,
+                       "resident": len(res.resident), "snapshot": len(res.snapshot),
+                       "divergent": len(res.divergent), "escalated": len(res.escalated),
+                       "fallback": len(res.fallback), "partition_s": engine.last_run["resident"],
+                       "events_appended": counter(M.M_RESIDENT_EVENTS_APPENDED) - ev0,
+                       "launches": {k: _build.launches[k] - before[k]
+                                    for k in ("replay", "rehome", "narrow_ok")},
+                       "pool": pool_stats(engine.resident)}
+        return res
+
+    # (a) every key cold; every verified-clean key admitted
+    res_a = step("a_cold", engine.verify_all)
+    if not res_a.ok or res_a.resident:
+        fail("resident_path (a): a divergent or resident key on a cold pool")
+    admitted = set(engine.resident.keys())
+    clean = [k for k in keys if k not in set(res_a.escalated) | set(res_a.fallback)]
+    if sorted(admitted) != sorted(clean):
+        fail(f"resident_path (a): {len(admitted)} keys admitted, not the {len(clean)} clean ones")
+
+    # (b) the held-back batches and the final live states land
+    for key, h, ms in zip(keys, hists, ctx["live"]):
+        for b in h[resident_cut(h):]:
+            stores.history.append_batch(*key, list(b.events))
+        stores.execution.upsert_workflow(ms)
+    widened0 = counter(M.M_RESIDENT_WIDENED)
+    hits0, suffix0 = counter(M.M_CACHE_HITS), counter(M.M_RESIDENT_SUFFIX_HITS)
+    res_b = step("b_suffix", engine.verify_all)
+    if res_b.divergent:
+        fail(f"resident_path (b): {len(res_b.divergent)} divergent keys")
+    if sorted(res_b.escalated) != ctx["want_escalated"] or \
+            sorted(res_b.fallback) != ctx["want_fallback"]:
+        fail(f"resident_path (b): escalated {len(res_b.escalated)} / fallback "
+             f"{len(res_b.fallback)}, not verify_path's {len(ctx['want_escalated'])} / "
+             f"{len(ctx['want_fallback'])}")
+    grew = {k for k, h in zip(keys, hists) if resident_cut(h) < len(h)}
+    suffix_hits = counter(M.M_RESIDENT_SUFFIX_HITS) - suffix0
+    exact_hits = counter(M.M_CACHE_HITS) - hits0
+    if (suffix_hits, exact_hits) != (len(admitted & grew), len(admitted - grew)) or \
+            not admitted <= set(res_b.resident) | set(res_b.fallback):
+        fail(f"resident_path (b): {suffix_hits} suffix and {exact_hits} exact hits, not the "
+             f"{len(admitted & grew)} and {len(admitted - grew)} the admitted keys make")
+    steps["b_suffix"].update(suffix_hits=suffix_hits, exact_hits=exact_hits)
+    steps["b_suffix"]["widened_rows"] = counter(M.M_RESIDENT_WIDENED) - widened0
+    steps["b_suffix"]["renarrowed_rows"] = counter(M.M_RESIDENT_NARROWED)
+
+    # (c) verify_path's 64 alterations
+    rng = np.random.default_rng(SEED)
+    altered = alter_live_states(stores, keys, rng)
+    engine.last_run_chunk_shapes = []
+    res_c = step("c_altered", engine.verify_all)
+    if sorted(res_c.divergent) != sorted(altered):
+        fail(f"resident_path (c): {len(res_c.divergent)} divergent keys, not the 64 altered")
+    cold = len(keys) - len(res_c.resident)
+    shapes = engine.last_run_chunk_shapes
+    want_rows = (-(-cold // 4096)) * min(4096, cold) if cold else 0
+    a_launches = steps["c_altered"]["launches"]["replay"]
+    if sum(w for w, _ in shapes) != want_rows or (
+            cold <= 4096 and a_launches != len(shapes) + len(engine.ladder.last_run if cold else [])):
+        fail("resident_path (c): kernel A ran for keys that are resident")
+    steps["c_altered"]["cold_keys"] = cold
+    if engine.resident.host_rows:
+        fail(f"resident_path (a)-(c): {engine.resident.host_rows} rows admitted through the host")
+
+    # (d) sweep, then a fresh engine on the same stores
+    t0 = time.perf_counter()
+    report = engine.snapshot_sweep(force=True)
+    t_sweep = time.perf_counter() - t0
+    fresh = TPUReplayEngine(stores, chunk_workflows=4096)
+    engine = fresh
+    res_d = step("d_hydrated", fresh.verify_all)
+    if sorted(res_d.snapshot) != sorted(report.keys_written):
+        fail(f"resident_path (d): {len(res_d.snapshot)} keys hydrated, not the "
+             f"{report.written} written")
+    # a key (c) served from the pool that the sweep did not write (a widened
+    # entry, or an altered live state the checksum gate refused) is cold
+    # here, and escalates again when its history overflows the base layout
+    unswept = (set(res_c.resident) - set(report.keys_written)) & set(ctx["want_escalated"])
+    if sorted(res_d.divergent) != sorted(res_c.divergent) or \
+            sorted(res_d.fallback) != sorted(res_c.fallback) or \
+            sorted(res_d.escalated) != sorted(set(res_c.escalated) | unswept):
+        fail(f"resident_path (d): the lists differ from (c)'s: divergent "
+             f"{len(res_d.divergent)}/{len(res_c.divergent)}, fallback {len(res_d.fallback)}/"
+             f"{len(res_c.fallback)}, escalated {len(res_d.escalated)}/{len(res_c.escalated)} "
+             f"+ {len(unswept)} resident in (c) and not swept")
+    steps["d_hydrated"].update(sweep_s=t_sweep, written=report.written, unswept_escalated=len(unswept),
+                               skipped_checksum=report.skipped_checksum,
+                               hydrate_s=fresh.last_run["resident"])
+    launches = dict(_build.launches)
+    check_launches(launches, "resident_path", RESIDENT_PATH_KERNELS)
+    emit("resident_path", workflows=len(keys), steps=steps, launches=launches)
+    return launches
+
+
+def serving_path(args, corp):
+    """Phase 9: one ServingScheduler, eight submitter threads committing the
+    serving corpus's held-back batches as transactions. Returns the launch
+    counts of the run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.engine.cache import batch_crc
+    from cadence_tpu_torch.engine.persistence import Stores
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.ops.payload import payload_rows_narrow
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+    from cadence_tpu_torch.utils import metrics as M
+
+    work = corp["serving"]
+    stores = Stores()
+    keys, builders = [], []
+    for h, at_cut, _ in work:
+        key = (h[0].domain_id, h[0].workflow_id, h[0].run_id)
+        for b in h[:serving_cut(h)]:
+            stores.history.append_batch(*key, list(b.events))
+        stores.execution.upsert_workflow(at_cut)
+        keys.append(key)
+        builders.append(StateBuilder(at_cut))
+    M.DEFAULT_REGISTRY.reset()
+    engine = TPUReplayEngine(stores)
+    sched = engine.serving_scheduler()
+    flushes = []
+    flush = sched._flush
+
+    def timed_flush(batch):
+        t0 = time.perf_counter()
+        flush(batch)
+        flushes.append((time.perf_counter() - t0, sum(1 + i.coalesced for i in batch)))
+
+    sched._flush = timed_flush
+    tickets = [[] for _ in keys]
+    #: the expected row and branch of each workflow's last submitted
+    #: transaction
+    last = [None] * len(keys)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    errors = []
+
+    def submitter(t):
+        # a workflow's transactions are sequential: round r+1 of a workflow
+        # commits once its round-r ticket resolved (the device maintenance
+        # itself is asynchronous); the thread's workflows interleave
+        owned = range(t, len(keys), SERVING_THREADS)
+        rounds = max(len(work[i][2]) for i in owned)
+        try:
+            for r in range(rounds):
+                for i in owned:
+                    h, _, expected = work[i]
+                    if r >= len(expected):
+                        continue
+                    if tickets[i]:
+                        tickets[i][-1].result(timeout=600)
+                    batch = h[serving_cut(h) + r]
+                    builders[i].apply_batch(batch)
+                    stores.execution.upsert_workflow(builders[i].ms)
+                    stores.history.append_batch(*keys[i], list(batch.events))
+                    if expected[r] is None:
+                        continue  # no payload row to hand over: the next one reads the store
+                    chained = r == 0 or expected[r - 1] is not None
+                    row, branch = expected[r]
+                    tickets[i].append(sched.submit(keys[i], row, branch, batch_crc(batch),
+                                                   batch=batch if chained else None))
+                    last[i] = expected[r]
+        except Exception as exc:  # reported after the join
+            errors.append(f"thread {t}: {type(exc).__name__}: {exc}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(t,)) for t in range(SERVING_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        fail(f"serving_path: submitter failed: {errors[:3]}")
+    if not sched.drain(timeout=600):
+        fail("serving_path: the queue did not drain")
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    sched.stop()
+    n_txns = sum(len(per) for per in tickets)
+    results = [tk.result(timeout=0) for per in tickets for tk in per if tk.done()]
+    if len(results) != n_txns:
+        fail(f"serving_path: {n_txns - len(results)} tickets never resolved")
+    bad = [r.error for r in results if not r.ok and not r.error.startswith("device-error:")]
+    if bad:
+        fail(f"serving_path: {len(bad)} tickets failed other than by a device error: {bad[:3]}")
+    stats = sched.stats()
+    if stats["parity_divergence"]:
+        fail(f"serving_path: {stats['parity_divergence']} parity divergences")
+    # every key still resident holds the oracle's final row, on the host and
+    # on the card (its gathered state projected again by kernel B)
+    resident = [(i, engine.resident.entry_for(k)) for i, k in enumerate(keys)]
+    resident = [(i, e) for i, e in resident if e is not None]
+    wrong = [i for i, e in resident
+             if not np.array_equal(e.payload, last[i][0]) or e.branch != last[i][1]]
+    by_slab = {}
+    for i, e in resident:
+        by_slab.setdefault(id(e.slot.slab), []).append((i, e))
+    for group in by_slab.values():
+        rows, _ = payload_rows_narrow(engine.resident.gather([e for _, e in group]),
+                                      engine.layout)
+        rows = rows.cpu().numpy()
+        wrong += [i for j, (i, _) in enumerate(group) if not np.array_equal(rows[j], last[i][0])]
+    if wrong:
+        fail(f"serving_path: {len(wrong)} resident entries differ from the oracle's final row")
+    check_launches(launches, "serving_path", SERVING_PATH_KERNELS)
+    waits = sorted(r.queue_wait_s for r in results)
+    fl = sorted(d for d, _ in flushes)
+    pct = lambda xs, q: xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0  # noqa: E731
+    emit("serving_path", workflows=len(keys), threads=SERVING_THREADS, transactions=n_txns,
+         unsubmitted=sum(len(w[2]) for w in work) - n_txns,
+         seconds=t_serve, transactions_per_s=n_txns / t_serve, flushes=len(flushes),
+         mean_flush_transactions=(sum(n for _, n in flushes) / len(flushes)) if flushes else 0,
+         coalescing_factor=stats["coalescing_factor"],
+         coalesced_appends=stats["coalesced_appends"],
+         queue_wait_ms={"p50": pct(waits, 0.5) * 1e3, "p99": pct(waits, 0.99) * 1e3},
+         flush_ms={"p50": pct(fl, 0.5) * 1e3, "p99": pct(fl, 0.99) * 1e3},
+         batched_launches=stats["batched_launches"], cold_admits=stats["cold_admits"],
+         suffix_appends=stats["suffix_appends"], exact_serves=stats["exact_serves"],
+         requeued=stats["requeued"], bypassed=stats["bypassed"],
+         escalations=sum(r.escalated for r in results),
+         not_ok=sum(not r.ok for r in results), parity_divergence=stats["parity_divergence"],
+         resident_checked=len(resident), resident_pool=pool_stats(engine.resident),
+         launches=launches)
     return launches
 
 
@@ -599,13 +1013,14 @@ def main() -> int:
                    help="run every phase at a few thousand workflows")
     args = p.parse_args()
     full = not args.small
-    config = "suites-16k" if full else "small"
-    args.per_suite = 16384 if full else 512
+    config = "suites-8k" if full else "small"
+    args.per_suite = 8192 if full else 512
     args.overflow = 16384 if full else 512
     args.chains = 2048 if full else 128
     args.trees = 4096 if full else 256
     args.lanes_w = 65536 if full else 2048
     args.verify_per_suite = 2048 if full else 128
+    args.serving_per_suite = 1024 if full else 64
     args.lanes_e = 128
 
     import torch
@@ -628,8 +1043,9 @@ def main() -> int:
     from cadence_tpu_torch.ops.payload import (payload_launch, payload_rows, payload_rows_narrow,
                                                payload_rows_narrow_plain)
     from cadence_tpu_torch.ops.convert import task_log_to_numpy
-    from cadence_tpu_torch.ops.state import (CAPACITY_ERRORS, init_state, leaves, widen_layout,
-                                             widen_state)
+    from cadence_tpu_torch.ops import rehome as RH
+    from cadence_tpu_torch.ops.state import (CAPACITY_ERRORS, init_state, leaves, narrow_ok_plain,
+                                             rehome_plain, widen_layout, widen_state)
     from cadence_tpu_torch.ops.stats import stats, stats_launch, stats_plain
     from cadence_tpu_torch.ops.streaming import replay_streamed
     from cadence_tpu_torch.ops.taskgen import init_task_log
@@ -656,7 +1072,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             print("ptxas:", line.strip(), flush=True)
 
-    # --- 2. the main path (suites-16k)
+    # --- 2. the main path (suites-8k)
     t0 = time.perf_counter()
     events_np = encode_corpus(histories)          # also the comparison input
     t_encode = time.perf_counter() - t0
@@ -928,6 +1344,71 @@ def main() -> int:
         library="torch.count_nonzero of each tensor"))
     emit("kernel_stats", max_abs_err=err_f, counts=f_k.tolist(), ms=ms_f, plain_ms=ms_fp,
          count_nonzero_ms=ms_fl)
+    # G: re-homing state rows at the resident pool's widths: a 4,096-row
+    # base-layout gather (a verify chunk's admit, an append group's gather),
+    # a scatter into a destination, a widen with init rows, a narrow;
+    # every state tensor against the plain version. The yardstick is one
+    # index_select per state tensor (66 calls, not one).
+    n_g = min(4096, W)
+    g_rows = torch.randperm(W, generator=g)[:n_g].to(dev)
+    L1 = widen_layout(DEFAULT_LAYOUT, 2)
+    got_g = RH.rehome(s_k, g_rows, DEFAULT_LAYOUT)
+    want_g = rehome_plain(s_k, g_rows, DEFAULT_LAYOUT)
+    states_equal(got_g, want_g, "rehome gather")
+    err_g = max(max_abs_err(x, y) for (_, x), (_, y) in zip(leaves(got_g), leaves(want_g)))
+    mixed = g_rows.clone()
+    mixed[::7] = -1
+    w_k = RH.rehome(s_k, mixed, L1)
+    states_equal(w_k, rehome_plain(s_k, mixed, L1), "rehome widen with init rows")
+    states_equal(RH.rehome(w_k, torch.arange(n_g, device=dev), DEFAULT_LAYOUT),
+                 rehome_plain(w_k, torch.arange(n_g, device=dev), DEFAULT_LAYOUT),
+                 "rehome narrow")
+    slots = torch.randperm(2 * n_g, generator=g)[:n_g].to(dev)
+    dst_k, dst_p = init_state(2 * n_g, L1, dev), init_state(2 * n_g, L1, dev)
+    RH.rehome(s_k, mixed, L1, dst_k, slots)
+    rehome_plain(s_k, mixed, L1, dst_p, slots)
+    states_equal(dst_k, dst_p, "rehome scatter")
+    del dst_k, dst_p, want_g
+    ms_g = cuda_ms(launch, setup=lambda: RH.rehome_launch(s_k, g_rows, DEFAULT_LAYOUT)[0],
+                   inner=20)
+    ms_gp = cuda_ms(lambda _: rehome_plain(s_k, g_rows, DEFAULT_LAYOUT))
+    ms_gl = cuda_ms(lambda _: [t.index_select(0, g_rows) for _, t in leaves(s_k)], inner=20)
+    row_bytes = state_bytes(got_g) // n_g
+    records.append(kernel_record(
+        "rehome", "cadence_tpu_torch/csrc/rehome.cu", "cadence_tpu/ops/state.py:283",
+        None, err_g, ms_g, ms_gp, 2 * n_g * row_bytes, 0,
+        also_replaces=["cadence_tpu/ops/state.py:328", "cadence_tpu/engine/resident.py:694",
+                       "cadence_tpu/engine/resident.py:710", "cadence_tpu/engine/ladder.py:341",
+                       "cadence_tpu/engine/ladder.py:370"],
+        rows=n_g, row_bytes=row_bytes, yardstick="index_select of each of the 66 state tensors",
+        yardstick_ms=ms_gl, ptxas=ptxas_usage(_build.build_log, "rehome_kernel")))
+    emit("kernel_rehome", max_abs_err=err_g, rows=n_g, ms=ms_g, plain_ms=ms_gp,
+         index_select_ms=ms_gl, checked=["gather", "widen with init rows", "narrow", "scatter"])
+    # H: narrow_ok on a widened state, some rows made unfit on every rule
+    h_s = RH.rehome(s_k, g_rows, L1)
+    h_s.activities.occ[::5, L.max_activities + 3] = True
+    h_s.timers.occ[1::7, L.max_timers] = True
+    h_s.signals.occ[2::11, -1] = True
+    h_s.vh_count[3::13, L.max_branches] = 1
+    h_s.vh_count[4::17, 0] = L.max_version_history_items + 1
+    h_s.current_branch[5::19] = L.max_branches
+    h_k = RH.narrow_ok(h_s, DEFAULT_LAYOUT)
+    h_p = narrow_ok_plain(h_s, DEFAULT_LAYOUT)
+    err_h = max_abs_err(h_k, h_p)
+    if err_h or h_p.all() or not h_p.any():
+        fail(f"narrow_ok kernel differs from its plain version ({err_h} rows)")
+    ms_h = cuda_ms(launch, setup=lambda: RH.narrow_ok_launch(h_s, DEFAULT_LAYOUT)[0], inner=20)
+    ms_hp = cuda_ms(lambda _: narrow_ok_plain(h_s, DEFAULT_LAYOUT), inner=5)
+    past = sum(getattr(L1, f) - getattr(L, f) for f in (
+        "max_activities", "max_timers", "max_children", "max_request_cancels", "max_signals"))
+    h_bytes = n_g * (4 + 4 * L1.max_branches + past + 1)
+    records.append(kernel_record(
+        "narrow_ok", "cadence_tpu_torch/csrc/rehome.cu", "cadence_tpu/ops/state.py:305",
+        None, err_h, ms_h, ms_hp, h_bytes, n_g * (2 * L1.max_branches + past + 2),
+        rows=n_g, fit=int(h_p.sum())))
+    emit("kernel_narrow_ok", max_abs_err=err_h, rows=n_g, fit=int(h_p.sum()), ms=ms_h,
+         plain_ms=ms_hp)
+    del got_g, w_k, h_s
     # A's wirec reader, on the main path's wirec corpus staged afresh
     slab_d, bases_d, n_d = NW.stage_corpus(wc, dev)
     prof = wc.profile
@@ -1204,13 +1685,21 @@ def main() -> int:
     del jobs
 
     # --- 7. verify_path: the engine's bulk verify over Stores
-    verify_launches = verify_path(args, corp, rebuilt, cap[resolved], residual)
+    verify_launches, verify_ctx = verify_path(args, corp, rebuilt, cap[resolved], residual)
     del rebuilt
+
+    # --- 8. resident_path: the resident tier and snapshots over the same histories
+    resident_launches = resident_path(args, corp, verify_ctx)
+    del verify_ctx
+
+    # --- 9. serving_path: the serving scheduler under eight submitter threads
+    serving_launches = serving_path(args, corp)
 
     # --- the summary lines
     paths = {"main_path": main_launches, "wirec_path": wirec_launches,
              "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches,
-             "verify_path": verify_launches}
+             "verify_path": verify_launches, "resident_path": resident_launches,
+             "serving_path": serving_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
     print(json.dumps({"launches": paths}))

@@ -283,3 +283,95 @@ def test_mesh_of_2_rebuild_equals_mesh_of_1_and_jax(overflow):
         assert_ms_equal(g, g1, f"mesh-of-2 against mesh-of-1, job {i}")
     assert stats_tuple(tr2.stats) == stats_tuple(jr2.stats) == stats_tuple(tr1.stats)
     assert tr2.ladder.mesh == Mesh(["cpu", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the resident and snapshot consults, against the JAX rebuilder wired the
+# same way (a verify engine's pool and pack cache; a swept snapshot store)
+# ---------------------------------------------------------------------------
+
+
+def _verified_engines(cut):
+    """{pkg: (engine, keys, histories)}: each package's engine has verified
+    (and so admitted) every history's first cut(h) batches."""
+    from cadence_tpu.engine.tpu_engine import TPUReplayEngine as JEngine
+    from cadence_tpu.parallel.mesh import make_mesh
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.parallel.mesh import Mesh
+    from tests.torch_parity import PACKAGES, package
+
+    out = {}
+    for pkg in PACKAGES:
+        gen = package(pkg, "gen.corpus")
+        hists = (gen.generate_corpus("timer_retry", 6, seed=SEED, target_events=50)
+                 + gen.generate_corpus("overflow", 24, seed=SEED, target_events=60))
+        stores = package(pkg, "engine.persistence").Stores()
+        builder = package(pkg, "oracle.state_builder").StateBuilder
+        keys = []
+        for h in hists:
+            key = (h[0].domain_id, h[0].workflow_id, h[0].run_id)
+            for b in h[:cut(h)]:
+                stores.history.append_batch(*key, list(b.events))
+            stores.execution.upsert_workflow(builder().replay_history(h[:cut(h)]))
+            keys.append(key)
+        if pkg == "cadence_tpu":
+            import jax
+            eng = JEngine(stores, chunk_workflows=16, mesh=make_mesh(jax.devices()[:1]))
+        else:
+            eng = TPUReplayEngine(stores, chunk_workflows=16, mesh=Mesh(["cpu"]))
+            eng.metrics = m.MetricsRegistry()
+        assert eng.verify_all().ok
+        out[pkg] = (eng, keys, hists)
+    return out
+
+
+def _consult_jobs(hists):
+    """Whole histories (suffix hits), the verified prefixes (exact hits)
+    and shorter prefixes (misses that leave the entries in place)."""
+    n = len(hists)
+    return ([(h, None) for h in hists[:n // 3]]
+            + [(h[:-(-2 * len(h) // 3)], None) for h in hists[n // 3:2 * n // 3]]
+            + [(h[:max(1, len(h) // 3)], None) for h in hists[2 * n // 3:]])
+
+
+def _full_stats(stats):
+    return stats_tuple(stats) + (stats.resident, stats.snapshot_seeded)
+
+
+def test_rebuild_consults_the_resident_pool_as_jax():
+    """Exact hits hydrate with no replay, suffix hits replay only their
+    appended batches, prefixes miss and leave the entries: the states, the
+    stats and the pools equal the JAX rebuilder's over the JAX engine's."""
+    engines = _verified_engines(lambda h: -(-2 * len(h) // 3))
+    results = {}
+    for pkg, (eng, keys, hists) in engines.items():
+        rb = JRebuilder(chunk_jobs=16) if pkg == "cadence_tpu" else \
+            DeviceRebuilder(device="cpu", chunk_jobs=16)
+        rb.resident, rb.pack_cache = eng.resident, eng.pack_cache
+        results[pkg] = (rb.rebuild(_consult_jobs(hists)), rb, eng)
+    (want, jrb, jeng), (got, trb, teng) = results["cadence_tpu"], results["cadence_tpu_torch"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_ms_equal(g, w, f"job {i}")
+    assert _full_stats(trb.stats) == _full_stats(jrb.stats)
+    assert trb.stats.resident >= 20
+    assert teng.resident.keys() == jeng.resident.keys()
+
+
+def test_rebuild_hydrates_swept_snapshots_as_jax():
+    """A fresh rebuilder given only the swept snapshot store (its own pool,
+    made on first use) seeds every job's record and replays only the
+    since-snapshot suffix: states (history_size included) and stats equal
+    the JAX rebuilder's."""
+    engines = _verified_engines(lambda h: -(-2 * len(h) // 3))
+    results = {}
+    for pkg, (eng, keys, hists) in engines.items():
+        assert eng.snapshot_sweep(force=True).written >= 20
+        rb = JRebuilder(chunk_jobs=16) if pkg == "cadence_tpu" else \
+            DeviceRebuilder(device="cpu", chunk_jobs=16)
+        rb.snapshots = eng.stores.snapshot
+        results[pkg] = (rb.rebuild([(h, None) for h in hists]), rb)
+    (want, jrb), (got, trb) = results["cadence_tpu"], results["cadence_tpu_torch"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_ms_equal(g, w, f"job {i}")
+    assert _full_stats(trb.stats) == _full_stats(jrb.stats)
+    assert trb.stats.snapshot_seeded >= 20 and trb.resident is not None

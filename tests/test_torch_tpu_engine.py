@@ -3,12 +3,11 @@ TPUReplayEngine) on the CPU beside the JAX package's, on Stores built
 from the same seeded corpora (each package generating with its own
 gen/corpus.py and building its live states with its own oracle):
 verify_all's total, verified_on_device and its divergent, fallback,
-device_errors and escalated lists, order included, and
-replay_tree_payloads' rows, errors and branches, exactly.
-
-The JAX side runs with CADENCE_TPU_RESIDENT=0, the configuration the
-port implements until its resident slice; one case holds a fresh JAX
-engine at its default setting to the port on a first call."""
+device_errors, escalated, resident and snapshot lists, order included,
+and replay_tree_payloads' rows, errors and branches, exactly. Both run
+at their default setting (the resident tier on); second and third calls
+after appends, and a fresh engine hydrating from swept snapshots, are
+held to the JAX package's too."""
 import copy
 import random
 
@@ -22,7 +21,7 @@ from cadence_tpu.parallel.mesh import make_mesh
 from cadence_tpu_torch.engine.tpu_engine import BulkVerifyResult, TPUReplayEngine, _bucket_events
 from cadence_tpu_torch.parallel.mesh import Mesh
 from cadence_tpu_torch.utils import metrics as m
-from tests.torch_parity import PACKAGES, package, stores_with
+from tests.torch_parity import PACKAGES, overflow_chain, package, reset_port_tiers, stores_with
 
 SEED = 20260730
 SUITES = ("basic", "echo_signal", "timer_retry", "concurrent_child", "ndc")
@@ -30,8 +29,9 @@ LISTS = ("divergent", "fallback", "device_errors", "escalated", "resident", "sna
 
 
 @pytest.fixture(autouse=True)
-def _no_resident(monkeypatch):
-    monkeypatch.setenv("CADENCE_TPU_RESIDENT", "0")
+def _isolated():
+    yield
+    reset_port_tiers()
 
 
 def corpus(suite, n, seed=SEED, target=40):
@@ -258,12 +258,16 @@ def test_empty_and_default_keys():
     assert eng.verify_all([]) == BulkVerifyResult(total=0, verified_on_device=0)
     assert eng.verify_all(keys[1:]).total == 2
     assert eng.verify_all().total == 3
-    assert set(eng.last_run) == {"expected_rows", "ladder", "arbitrate"}
+    assert set(eng.last_run) == {"resident", "expected_rows", "ladder", "arbitrate"}
+    assert eng.verify_all().resident == keys
     rows, errors, branch = eng.replay_tree_payloads([])
     assert rows.shape == (0, eng.layout.width) and errors.shape == branch.shape == (0,)
 
 
-def test_pack_cache_serves_a_warm_reverify():
+def test_pack_cache_serves_a_warm_reverify(monkeypatch):
+    """With the resident tier off, a re-verify of unchanged histories packs
+    every key from the pack cache."""
+    monkeypatch.setenv("CADENCE_TPU_RESIDENT", "0")
     stores, keys = stores_with(corpus("timer_retry", 6)("cadence_tpu_torch"), "cadence_tpu_torch")
     eng = engines("cadence_tpu_torch", stores)
     assert eng.verify_all().ok
@@ -286,3 +290,91 @@ def test_no_device_named_means_the_card(monkeypatch):
     assert eng.ladder is None
     with pytest.raises(RuntimeError, match="no CUDA"):
         eng.verify_all()
+
+
+def _staged(pkg):
+    """(histories, stages): 48 overflow and 16 echo_signal histories stored
+    at 2/3 of their batches, then whole; and the overflow chain of
+    tests/torch_parity.py stored at its prefix, then its first append (its
+    suffix overflows the base tables), then its second (it drains)."""
+    gen = package(pkg, "gen.corpus")
+    hs = (gen.generate_corpus("overflow", 48, seed=SEED, target_events=60)
+          + gen.generate_corpus("echo_signal", 16, seed=SEED, target_events=40))
+    stages = [(-(-2 * len(h) // 3), len(h), len(h)) for h in hs]
+    prefix, append1, append2 = overflow_chain(pkg)
+    return hs + [append2], stages + [(len(prefix), len(append1), len(append2))]
+
+
+def _staged_stores(pkg, hists, stages):
+    """Stores at stage 0, with the oracle's state there as each live state;
+    and advance(stores, stage), which appends up to that stage's batches
+    and upserts the live states."""
+    stores = package(pkg, "engine.persistence").Stores()
+    builder = package(pkg, "oracle.state_builder").StateBuilder
+    keys = [(h[0].domain_id, h[0].workflow_id, h[0].run_id) for h in hists]
+    done = [0] * len(hists)
+
+    def advance(stage):
+        for i, (key, h) in enumerate(zip(keys, hists)):
+            upto = stages[i][stage]
+            if upto == done[i]:
+                continue
+            for b in h[done[i]:upto]:
+                stores.history.append_batch(*key, list(b.events))
+            stores.execution.upsert_workflow(builder().replay_history(h[:upto]))
+            done[i] = upto
+
+    advance(0)
+    return stores, keys, advance
+
+
+def test_reverify_after_appends_equals_jax():
+    """A cold first call admits the clean rows; after the held-back batches
+    land, the second call serves every admitted key as a suffix hit (the
+    overflow chain's suffix through escalate_resident, widened); after 3
+    live states are altered and the chain drains, the third call serves
+    exact hits, finds the 3, and re-narrows the chain. Every result equals
+    the JAX package's, and so do the pools' keys."""
+    runs = {}
+    for pkg in PACKAGES:
+        hists, stages = _staged(pkg)
+        stores, keys, advance = _staged_stores(pkg, hists, stages)
+        eng = engines(pkg, stores, chunk=16)
+        first = eng.verify_all()
+        advance(1)
+        second = eng.verify_all()
+        advance(2)
+        for i in (2, 20, 50):
+            stores.execution.get_workflow(*keys[i]).execution_info.signal_count += 1
+        third = eng.verify_all()
+        runs[pkg] = (first, second, third, eng, keys)
+    for g, w in zip(runs["cadence_tpu_torch"][:3], runs["cadence_tpu"][:3]):
+        assert_results_equal(g, w)
+    first, second, third, eng, keys = runs["cadence_tpu_torch"]
+    assert not first.resident and first.ok
+    assert second.ok and keys[-1] in second.resident and keys[-1] in second.escalated
+    assert set(third.divergent) == {keys[i] for i in (2, 20, 50)}
+    counter = lambda name: eng.metrics.counter(m.SCOPE_TPU_RESIDENT, name)  # noqa: E731
+    assert counter(m.M_RESIDENT_WIDENED) == 1 and counter(m.M_RESIDENT_NARROWED) == 1
+    assert eng.resident.keys() == runs["cadence_tpu"][3].resident.keys()
+
+
+def test_fresh_engine_hydrates_swept_snapshots():
+    """snapshot_sweep(force=True) after a verify pass, then a fresh engine
+    on the same stores: every written key hydrates into the new pool and
+    verifies as a resident hit. Sweep reports and results equal JAX's."""
+    out = {}
+    for pkg in PACKAGES:
+        stores, keys = stores_with(_staged(pkg)[0], pkg)
+        eng = engines(pkg, stores, chunk=16)
+        eng.verify_all()
+        report = eng.snapshot_sweep(force=True)
+        fresh = engines(pkg, stores, chunk=16)
+        out[pkg] = (report, fresh.verify_all(), keys)
+    (gr, g, keys), (wr, w, _) = out["cadence_tpu_torch"], out["cadence_tpu"]
+    assert (gr.considered, gr.written, gr.skipped_policy, gr.skipped_checksum,
+            gr.skipped_not_at_tip, gr.keys_written) == \
+        (wr.considered, wr.written, wr.skipped_policy, wr.skipped_checksum,
+         wr.skipped_not_at_tip, wr.keys_written)
+    assert_results_equal(g, w)
+    assert g.snapshot == gr.keys_written and g.ok and len(g.snapshot) > 40

@@ -2,6 +2,8 @@
 go through the JAX package and through cadence_tpu_torch on the CPU, and
 the results are compared exactly (every value is an integer, so the
 tolerance is 0)."""
+import random
+
 import numpy as np
 
 from cadence_tpu_torch.ops.state import leaves
@@ -120,3 +122,57 @@ def stores_with(hists, pkg: str):
         stores.execution.upsert_workflow(builder().replay_history(h))
         keys.append(key)
     return stores, keys
+
+
+def reset_port_tiers() -> None:
+    """Stop every serving drain thread and free every resident slab of the
+    port (what tests/conftest.py does for the JAX package's tiers), so no
+    thread or pinned slab leaks across the tests of an xdist worker."""
+    from cadence_tpu_torch.engine import resident, serving
+
+    serving.reset_all()
+    resident.reset_all()
+
+
+def overflow_chain(pkg):
+    """tests/test_resident.py's three-stage history in package pkg: the
+    prefix pins 12 activities; append 1 schedules 10 more (22 at once:
+    TABLE_OVERFLOW at base K) and completes the 8 oldest; append 2
+    completes the 6 in the widened slots (narrowable again)."""
+    gen = package(pkg, "gen.corpus")
+    ET = package(pkg, "core.enums").EventType
+    w = gen.HistoryWriter(workflow_id="ovf")
+    gen._start(w, random.Random(0))
+    cyc = gen._run_decision(w, 2)
+    gen._begin_decision_completed_batch(w, cyc)
+
+    def schedule(prefix, n):
+        return [w.add(ET.ActivityTaskScheduled, activity_id=f"{prefix}{i}", task_list="res-tl",
+                      schedule_to_start_timeout_seconds=60,
+                      schedule_to_close_timeout_seconds=120,
+                      start_to_close_timeout_seconds=60, heartbeat_timeout_seconds=0)
+                for i in range(n)]
+
+    prefix_acts = schedule("p", 12)
+    sched = gen._schedule_decision(w, in_batch=True)
+    w.end_batch()
+    prefix = list(w.batches)
+
+    def complete(act_ev):
+        started = w.single(ET.ActivityTaskStarted, scheduled_event_id=act_ev.id,
+                           request_id=f"poll-{act_ev.id}")
+        w.begin_batch()
+        w.add(ET.ActivityTaskCompleted, scheduled_event_id=act_ev.id, started_event_id=started.id)
+        w.end_batch()
+
+    cyc = gen._run_decision(w, sched)
+    gen._begin_decision_completed_batch(w, cyc)
+    flood_acts = schedule("f", 10)
+    gen._schedule_decision(w, in_batch=True)
+    w.end_batch()
+    for ev in prefix_acts[:8]:
+        complete(ev)
+    append1 = list(w.batches)
+    for ev in flood_acts[4:]:
+        complete(ev)
+    return prefix, append1, list(w.batches)
