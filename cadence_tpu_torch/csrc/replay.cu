@@ -5,7 +5,9 @@
 // ops/state.py `reset_rows`) and the `lax.scan` loops over it in
 // ops/replay.py (`replay_events`, `replay_from_state`, `replay_events32`
 // with `widen_wire32`, and `replay_wirec` / `replay_wirec_from_state` with
-// ops/wirec.py `decode_step` fused into the loop).
+// ops/wirec.py `decode_step` fused into the loop), and, with its generator
+// reader, ops/genkernel.py `_fused_scan` (`generate_and_replay` and its
+// CRC and sharded forms: `gen_step` fused with `step`).
 //
 // Design. One thread per workflow loops over that workflow's E events and
 // updates its ReplayState row in place in device memory, so a fresh
@@ -37,8 +39,8 @@
 //   histories, current_branch) but keeps the error code;
 // - int64 sums wrap (done in uint64_t; signed overflow is undefined).
 //
-// Three event readers, one instantiation each: int64 lanes, wire32 lanes,
-// and wirec. The int64 and wire32 readers have a second instantiation,
+// Four event readers, one instantiation each: int64 lanes, wire32 lanes,
+// wirec, and the device generator. The int64 and wire32 readers have a second instantiation,
 // TASKS, which also appends each event's transfer and timer tasks to the
 // task logs (taskgen.cuh; cadence_replay_tasks). The wirec reader decodes
 // the thread's slab row (B bytes) under a profile passed by value
@@ -46,6 +48,12 @@
 // from the `bases` column the profile names; it decodes EVERY row e < E
 // before the id <= 0 skip, padding rows included, because the JAX
 // decode_step advances its carry on every column and masks only the output.
+// The generator reader (cadence_replay_gen) reads no event at all: each
+// step runs genkernel.cuh's generator step on the thread's GenState, held
+// in registers beside the Scalars, and applies the lanes it fills. The
+// generator never sets FLAG_RUN_RESET, so that instance has no reset
+// branch (JAX's `enable_reset=False`); the sticky-error break is right
+// here too, since the generator's output feeds nothing but this row.
 //
 // Bound. The work per event is a few dozen integer operations and a
 // K-wide scan of at most one table, so the kernel is bound by memory: the
@@ -53,7 +61,12 @@
 // of slab plus the per-workflow bases and count as wirec) and the state
 // (3,602 B per workflow at the default layout) is written once.
 // Each thread reads its own 144-byte rows, so a warp's loads do not
-// coalesce; a field-major lane and state layout is the later fix.
+// coalesce; a field-major lane and state layout is the later fix. The
+// generator reader's inputs are two scalars and its output the state, so
+// it is bound by integer operations: the generator's four 64-bit hashes
+// and modulos a step (a 64-bit multiply is several 32-bit instructions on
+// this card) beside the step's own work.
+#include "genkernel.cuh"
 #include "state.cuh"
 #include "wirec.cuh"
 
@@ -152,7 +165,7 @@ __device__ __forceinline__ int first_free(const uint8_t* occ, int k) {
   return -1;
 }
 
-enum Reader : int { READ_INT64 = 0, READ_WIRE32 = 1, READ_WIREC = 2 };
+enum Reader : int { READ_INT64 = 0, READ_WIRE32 = 1, READ_WIREC = 2, READ_GEN = 3 };
 
 // The wirec reader: decode one slab row into the 18 lanes. `acc[i]` is
 // lane i's DELTA carry, advanced here, or its TSREL_NZ base. The loop is
@@ -357,13 +370,18 @@ struct WirecArgs {
   int b, k;                // slab bytes per event, bases columns
 };
 
+// The generator reader's inputs: row w is global workflow first_index + w.
+struct GenArgs {
+  int64_t seed, first_index;
+};
+
 #include "taskgen.cuh"
 
 // TASKS: also emit each event's transfer and timer tasks into the logs `L`
 // (taskgen.cuh); unused otherwise.
 template <int READER, bool TASKS>
 __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int64_t W,
-                              int64_t E, Caps c, WirecArgs wa,
+                              int64_t E, Caps c, WirecArgs wa, GenArgs ga,
                               const __grid_constant__ WirecProfile prof, TaskLogPtrs L) {
   const int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (w >= W) return;
@@ -379,6 +397,8 @@ __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int6
     for (int i = 0; i < NUM_LANES; ++i)
       acc[i] = prof.lane[i].base >= 0 ? wa.bases[w * wa.k + prof.lane[i].base] : 0;
   }
+  gen::GenState gs;
+  if constexpr (READER == READ_GEN) gen::init(gs, ga.seed, ga.first_index + w);
 
   Scalars r;
   load_scalars(S, w, r);
@@ -393,6 +413,8 @@ __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int6
     if constexpr (READER == READ_WIREC)
       read_wirec(static_cast<const uint8_t*>(events) + (w * E + e) * wa.b, prof, acc,
                  e < n_real, lane);
+    else if constexpr (READER == READ_GEN)
+      gen::step(gs, ga.seed, ga.first_index + w, e, E, lane);
     else
       read_event<READER>(events, w * E + e, lane);
     const int64_t ev_id = lane[0];
@@ -409,7 +431,9 @@ __global__ void replay_kernel(StatePtrs S, const void* __restrict__ events, int6
     const int64_t flags = lane[17];
 
     // 0. continue-as-new run boundary
-    if (flags & FLAG_RUN_RESET) reset_row(S, w, c, r);
+    if constexpr (READER != READ_GEN) {
+      if (flags & FLAG_RUN_RESET) reset_row(S, w, c, r);
+    }
     const bool vh_only = (flags & FLAG_VH_ONLY) != 0;
 
     // 1. per-branch version history with fork-inherit
@@ -801,11 +825,11 @@ int launch_dense(const void* ptr_table, const void* events, int64_t W, int64_t E
   const WirecArgs none{nullptr, nullptr, 0, 0};
   const WirecProfile no_profile{};
   if (wire32)
-    replay_kernel<READ_WIRE32, TASKS><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c,
-                                                                         none, no_profile, L);
+    replay_kernel<READ_WIRE32, TASKS><<<blocks, REPLAY_THREADS, 0, st>>>(
+        S, events, W, E, c, none, GenArgs{}, no_profile, L);
   else
-    replay_kernel<READ_INT64, TASKS><<<blocks, REPLAY_THREADS, 0, st>>>(S, events, W, E, c,
-                                                                        none, no_profile, L);
+    replay_kernel<READ_INT64, TASKS><<<blocks, REPLAY_THREADS, 0, st>>>(
+        S, events, W, E, c, none, GenArgs{}, no_profile, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -848,6 +872,24 @@ extern "C" int cadence_replay_wirec(const void* ptr_table, const void* slab, con
                      B, K};
   replay_kernel<READ_WIREC, false>
       <<<blocks, REPLAY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          S, slab, W, E, c, wa, wirec_profile_from(profile), TaskLogPtrs{});
+          S, slab, W, E, c, wa, GenArgs{}, wirec_profile_from(profile), TaskLogPtrs{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A's generator reader: generate and replay E events for each of the
+// W workflows first_index .. first_index + W - 1 of `seed`, in place on the
+// state (ops/genkernel.py generate_and_replay's loop).
+extern "C" int cadence_replay_gen(const void* ptr_table, int64_t seed, int64_t first_index,
+                                  int64_t W, int64_t E, const int* caps, int b, int kv,
+                                  void* stream) {
+  using namespace cadence;
+  const StatePtrs S = state_from(ptr_table);
+  Caps c{caps[0], caps[1], caps[2], caps[3], caps[4], b, kv};
+  if (W <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((W + REPLAY_THREADS - 1) / REPLAY_THREADS);
+  const WirecArgs none{nullptr, nullptr, 0, 0};
+  const WirecProfile no_profile{};
+  replay_kernel<READ_GEN, false><<<blocks, REPLAY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      S, nullptr, W, E, c, none, GenArgs{seed, first_index}, no_profile, TaskLogPtrs{});
   return static_cast<int>(cudaGetLastError());
 }

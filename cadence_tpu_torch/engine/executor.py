@@ -228,6 +228,21 @@ def sync_devices(devices) -> None:
             torch.cuda.current_stream(dev).synchronize()
 
 
+def queue_to_host(tensors, device) -> tuple:
+    """Queue a copy of each tensor into page-locked host memory behind the
+    launches queued so far on `device`'s current stream, and record an
+    event after the copies. Returns (host tensors, that event), or the
+    tensors as they are and None on the CPU. Waiting on the event waits for
+    those launches alone, not for work queued behind them, so a caller can
+    queue the next chunk before it reads this one."""
+    if device.type != "cuda":
+        return tuple(tensors), None
+    with torch.cuda.device(device):
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in tensors)
+        return host, torch.cuda.current_stream(device).record_event()
+
+
 def replay_corpus_mesh(events, mesh=None, layout=None, chunk_workflows: Optional[int] = None,
                        depth: Optional[int] = None, registry=None):
     """Serve a packed [W, E, L] int64 corpus from the mesh (None: the

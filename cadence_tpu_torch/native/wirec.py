@@ -9,11 +9,18 @@ encoder otherwise, with the same bytes either way; the counters under
 `tpu.native` say which one served. `CADENCE_TPU_NATIVE_WIREC` set to
 0/false/off/no pins the numpy encoder.
 
-Staging. `stage_corpus` copies the slab, bases and n_events into
-page-locked host memory and from there to the card with non-blocking
-copies on a side CUDA stream; the caller's current stream waits on an
-event recorded after the copies, so the replay launched next on it reads
-whole tensors while the host thread has already moved on.
+The feeder's chunks go through `pack_serialized_wirec`: wire blobs to
+int64 lanes to wirec columns in one native pass (the first chunk packs,
+measures and emits; later chunks make one fused call under the pinned
+profile and raise ProfileMisfit when they do not fit it), written into
+the reusable host buffers of a `WirecBuffers` ring slot.
+
+Staging. `stage_corpus` copies the slab, bases and n_events (a ring
+slot's arrays or any others) into page-locked host memory and from there
+to the card with non-blocking copies on a side CUDA stream; the caller's
+current stream waits on an event recorded after the copies, so the replay
+launched next on it reads whole tensors while the host thread has already
+moved on, and the slot may be written again as soon as the call returns.
 """
 from __future__ import annotations
 
@@ -123,20 +130,55 @@ def measure_profile_native(events64: np.ndarray,
                                       consts.tolist())))
 
 
+class WirecBuffers:
+    """The reusable host buffers of one ring slot of the feeder: the int64
+    lanes scratch and the wirec triple (slab, bases, n_events), the triple
+    made anew only when the pinned profile's widths change (a refit). The
+    native emit overwrites every byte it hands out, so a slot is reused
+    chunk after chunk without zeroing; the executor's ring discipline
+    frees it only after the chunk that last used it has finished."""
+
+    def __init__(self, chunk_workflows: int, max_events: int) -> None:
+        self.W = chunk_workflows
+        self.E = max_events
+        self.lanes = np.empty((chunk_workflows, max_events, NUM_LANES), dtype=np.int64)
+        self._key: Optional[Tuple[int, int]] = None
+        self.slab = self.bases = self.n_events = None
+
+    def for_profile(self, profile):
+        """(slab, bases, n_events) sized for `profile`."""
+        B, K = profile_widths(profile)
+        if self._key != (B, K):
+            self.slab = np.empty((self.W, self.E, B), dtype=np.uint8)
+            self.bases = np.empty((self.W, K), dtype=np.int64)
+            self.n_events = np.empty((self.W,), dtype=np.int32)
+            self._key = (B, K)
+        return self.slab, self.bases, self.n_events
+
+
+def _outputs(W: int, E: int, profile, out: Optional[WirecBuffers]):
+    if out is None:
+        B, K = profile_widths(profile)
+        return (np.empty((W, E, B), dtype=np.uint8), np.empty((W, K), dtype=np.int64),
+                np.empty((W,), dtype=np.int32))
+    if (out.W, out.E) != (W, E):
+        raise ValueError(f"WirecBuffers slot is [{out.W}, {out.E}], the chunk [{W}, {E}]")
+    return out.for_profile(profile)
+
+
 def pack_wirec_native(events64: np.ndarray, profile=None,
-                      num_threads: Optional[int] = None) -> WirecCorpus:
+                      num_threads: Optional[int] = None,
+                      out: Optional[WirecBuffers] = None) -> WirecCorpus:
     """[W, E, L] int64 -> WirecCorpus with the native encoder, the same
     bytes as ops/wirec.pack_wirec; under a pinned `profile` that the lanes
-    do not fit, raises ProfileMisfit."""
+    do not fit, raises ProfileMisfit. `out` writes into a ring slot."""
     ev = _lanes(events64)
     W, E, L = ev.shape
     threads = pack_threads(num_threads)
     if profile is None:
         profile = measure_profile_native(ev, num_threads=threads)
     B, K = profile_widths(profile)
-    slab = np.empty((W, E, B), dtype=np.uint8)
-    bases = np.empty((W, K), dtype=np.int64)
-    n_events = np.empty((W,), dtype=np.int32)
+    slab, bases, n_events = _outputs(W, E, profile, out)
     cols = _profile_columns(profile)
     rc = _lib().cadence_wirec_emit(
         ev.ctypes.data_as(_I64P), W, E, L, *(c.ctypes.data_as(_I64P) for c in cols),
@@ -145,6 +187,48 @@ def pack_wirec_native(events64: np.ndarray, profile=None,
     if rc != 0:
         _raise_misfit(rc)
     return WirecCorpus(slab, bases, n_events, tuple(profile))
+
+
+def pack_serialized_wirec(blobs: Sequence[bytes], max_events: int, profile=None,
+                          num_threads: Optional[int] = None,
+                          out: Optional[WirecBuffers] = None) -> Tuple[WirecCorpus, int]:
+    """W serialized histories -> int64 lanes -> WirecCorpus, natively:
+    without a `profile`, one pack then measure and emit (the first chunk);
+    under a pinned `profile`, one fused call, which raises ProfileMisfit
+    when the chunk does not fit it (its lanes are then in `out.lanes`, so
+    the caller refits from them). Returns (corpus, events packed)."""
+    from .packing import blob_offsets, raise_pack_error
+
+    lib = _lib()
+    W = len(blobs)
+    blob, offsets = blob_offsets(blobs)
+    threads = pack_threads(num_threads, cap=max(1, W))
+    if out is not None:
+        if (out.W, out.E) != (W, max_events):
+            raise ValueError(f"WirecBuffers slot is [{out.W}, {out.E}], the chunk "
+                             f"[{W}, {max_events}]")
+        lanes = out.lanes
+    else:
+        lanes = np.empty((W, max_events, NUM_LANES), dtype=np.int64)
+    if profile is None:
+        rc = lib.cadence_pack_corpus(blob, offsets.ctypes.data_as(_I64P), W, max_events,
+                                     NUM_LANES, lanes.ctypes.data_as(_I64P), threads)
+        if rc < 0:
+            raise_pack_error(rc)
+        return pack_wirec_native(lanes, num_threads=num_threads, out=out), int(rc)
+    B, K = profile_widths(profile)
+    slab, bases, n_events = _outputs(W, max_events, profile, out)
+    misfit = np.zeros(1, dtype=np.int64)
+    rc = lib.cadence_wirec_pack_fused(
+        blob, offsets.ctypes.data_as(_I64P), W, max_events, NUM_LANES,
+        lanes.ctypes.data_as(_I64P), *(c.ctypes.data_as(_I64P) for c in _profile_columns(profile)),
+        len(profile), B, K, slab.ctypes.data_as(_U8P), bases.ctypes.data_as(_I64P),
+        n_events.ctypes.data_as(_I32P), misfit.ctypes.data_as(_I64P), threads)
+    if rc < 0:
+        raise_pack_error(rc)
+    if int(misfit[0]) != 0:
+        _raise_misfit(int(misfit[0]))
+    return WirecCorpus(slab, bases, n_events, tuple(profile)), int(rc)
 
 
 def pack_wirec_auto(events64: np.ndarray, profile=None, num_threads: Optional[int] = None,

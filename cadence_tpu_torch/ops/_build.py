@@ -135,6 +135,11 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_narrow_ok.restype = I
     # state pointer table, K_in[5], B_in, Kv_in, K_out[5], B_out, Kv_out, out, W, stream
     lib.cadence_narrow_ok.argtypes = [P, P, I, I, P, I, I, P, L, P]
+    lib.cadence_gen_lanes.restype = I
+    lib.cadence_gen_lanes.argtypes = [L, L, L, L, P, P]  # seed, first index, W, E, out, stream
+    lib.cadence_replay_gen.restype = I
+    # state pointer table, seed, first index, W, E, K[5], B, Kv, stream
+    lib.cadence_replay_gen.argtypes = [P, L, L, L, L, P, I, I, P]
 
 
 def load() -> ctypes.CDLL:
@@ -157,7 +162,8 @@ def check(rc: int, what: str) -> None:
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
 launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "payload": 0, "crc32": 0,
-            "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0}
+            "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0,
+            "gen_lanes": 0, "replay_gen": 0}
 
 
 def reset_launches() -> None:

@@ -5,7 +5,8 @@ payload; core/checksum.py mirrors it with zlib over little-endian int64
 rows. `crc32_rows` hashes each [width] row to one value on the device, so
 the host reads 4 bytes per workflow instead of 8 * width: kernel C
 (csrc/crc32.cu) for rows on the GPU, the plain PyTorch version
-`crc32_rows_plain` for rows on the CPU.
+`crc32_rows_plain` for rows on the CPU. `replay_to_crc` is the whole
+reduction from event lanes: kernels A, B and C in turn.
 
 CRCs are unsigned 32-bit values. Inside torch they are int64 tensors that
 hold the unsigned value (torch's uint32 has almost no ops); at the numpy
@@ -82,3 +83,14 @@ def crc32_launch(rows: torch.Tensor):
     out = torch.empty((W,), dtype=torch.int64, device=rows.device)
     return _build.launcher("crc32", _build.load().cadence_crc32, rows, out, W, width,
                            _build.stream_of(rows)), out
+
+
+def replay_to_crc(events, layout, device=None):
+    """Replay packed events [W, E, 18] int64 and reduce them to (crc32 [W]
+    int64 holding the unsigned value, error [W]): kernels A, B and C in
+    turn on the card, their plain versions on the CPU."""
+    from .payload import payload_rows
+    from .replay import replay_events
+
+    s = replay_events(events, layout, device)
+    return crc32_rows(payload_rows(s, layout)), s.error

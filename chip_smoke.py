@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the full run, on one CUDA card
     python3 chip_smoke.py --small    # the same phases at a few thousand workflows
+                                     # (the north star at 16,384 x 200)
 
 Phases, one JSON line each:
   1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
@@ -24,6 +25,12 @@ Phases, one JSON line each:
      and errors must equal the int64 path's, then stream_wirec_mesh in 4
      workflow chunks, which must give the same CRCs; the host-to-device
      time of the int64, wire32 and wirec bytes.
+     feeder_path: the same histories' wire bytes (serialized in the
+     generation pool) through feed_serialized, feed_serialized32 and
+     feed_serialized_wirec at 4,096 workflows a chunk: rows, CRCs and errors
+     equal to the int64 path's, every real event counted, the native wirec
+     encoder serving; each feed's wall, pack, pack-queue-wait and H2D
+     seconds and events/s.
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes (tolerance 0: every value is an integer), timed with CUDA
      events (median of REPS; only the kernel's launch lies between the
@@ -40,6 +47,30 @@ Phases, one JSON line each:
      yardstick, kernel G (rehome: a 4,096-row gather, scatter, widen and
      narrow with init rows) with one index_select per state tensor as its
      yardstick, and kernel H (narrow_ok on a widened state).
+     kernel_gen_lanes: kernel I (the device generator's lanes) at 16,384 x
+     1,000 against its plain version, every history running 1..E from
+     Started to Completed, 256 sampled workflows (8 blocks of 32, their lanes
+     made by the plain version on the CPU in the generation pool) equal to
+     kernel I's and, through kernels A and B, to the oracle's rows.
+     kernel_replay_gen: kernel A's generator reader, its state equal to
+     kernel A's on kernel I's lanes (all 66 tensors) and, at 4,096 x 1,000,
+     to the plain fused loop's; timed at 16,384 and at a chunk that fills
+     the card, beside the bound.
+  3b. north_star, configuration ns-1m (BASELINE.md's north star, bench.py's
+     _north_star): 1,000,000 workflows rounded up to whole chunks x 1,000
+     events, seed 20260730, through generate_and_replay_sharded_crc over a
+     mesh of one card, dispatch depth 2 (a chunk's CRCs are queued to
+     page-locked memory behind its launches, the next chunk is launched,
+     then the host waits for that copy alone), at chunks of 16,384
+     (bench.py's default) and 131,072 (one that fills the card): events/s,
+     chunk rates, 0 error workflows, crc_xor; bench.py's parity leg
+     (north_star_parity): kernel I makes the 256 sampled workflows' lanes,
+     the oracle replays them in a pool of workers, and 0 of their CRCs may
+     differ from the first chunk's; the first chunk on a mesh of two slices
+     and unsharded equal to the mesh of one; then the host generator
+     (host_generator: generate_corpus_native, 4,096 x 1,000, through
+     kernels A and B), 0 errors and 64 sampled workflows equal to the
+     oracle.
   4. the paths the suites never reach: the `overflow` suite, continue-as-new
      chains, divergent branch trees and a lane-level random corpus (also
      packed as wirec, whole and split into a carried prefix and a suffix);
@@ -100,9 +131,10 @@ Phases, one JSON line each:
      and every resident entry's payload and device state the oracle's final
      row. Prints transactions/s, flushes, coalescing, queue-wait and flush
      percentiles and the path counts.
-Each driven path (main path, wirec_path, fallback_ladder, rebuild_path,
-verify_path, resident_path, serving_path)
-runs with every launch count set to 0 just before it and read just after,
+Each driven path (main path, wirec_path, feeder_path, north_star's timed
+chunk loops, north_star_parity, host_generator, fallback_ladder,
+rebuild_path, verify_path, resident_path, serving_path) runs with every
+launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched. The last lines are the launch
 counts, the card's name and power limit, the per-kernel table, and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -139,6 +171,30 @@ REBUILD_PATH_KERNELS = ("replay_tasks", "payload", "replay")
 VERIFY_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats", "rehome")
 RESIDENT_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats", "rehome", "narrow_ok")
 SERVING_PATH_KERNELS = ("replay", "payload", "rehome", "narrow_ok")
+NORTH_STAR_KERNELS = ("replay_gen", "payload", "crc32")
+#: bench.py's parity leg of the north star (the sample's lanes for the
+#: oracle), and the host generator's corpus through kernels A and B
+NORTH_STAR_PARITY_KERNELS = ("gen_lanes",)
+HOST_GENERATOR_KERNELS = ("replay", "payload")
+FEEDER_PATH_KERNELS = ("replay", "payload", "crc32", "replay_wirec")
+#: the north star (BASELINE.md): 1M distinct histories of 1k events, made and
+#: replayed on the card; bench.py's default chunk, and a chunk that fills it
+NS_WORKFLOWS = 1_000_000
+NS_EVENTS = 1000
+NS_CHUNKS = (16384, 131072)
+#: the generator kernels' check width (kernel I against its plain version,
+#: A-gen against kernel A on kernel I's lanes), and the oracle's sample:
+#: NS_BLOCKS blocks of NS_BLOCK contiguous workflows inside it
+GEN_CHECK_W = 16384
+NS_BLOCK, NS_BLOCKS = 32, 8
+#: the host generator's corpus through kernel A, and its oracle sample
+NATIVE_GEN_W, NATIVE_GEN_SAMPLE = 4096, 64
+#: integer operations of one generator step (genkernel.cuh step): four
+#: splitmix hashes of 14 64-bit operations, about four modulos of 3, the
+#: occupancy counts and the action selects (about 40), the slot update and
+#: the 18 lanes; each 64-bit multiply counted once, though it costs several
+#: 32-bit instructions on this card
+GEN_OPS_PER_EVENT = 130
 #: verify_path's suites beside the overflow suite (whose workflows are
 #: mostly gen_basic's)
 VERIFY_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "ndc")
@@ -192,7 +248,9 @@ def _oracle_tasks(batches):
 
 def _gen_chunk(task):
     """One pool task: (suite, first index, count, sampled indices, with
-    task streams) → (histories, {index: (oracle row, branch[, streams])})."""
+    task streams) → (histories, {index: (oracle row, branch[, streams])},
+    the histories serialized by the wire codec for the feeder)."""
+    from cadence_tpu_torch.core.codec import serialize_history
     from cadence_tpu_torch.gen.corpus import generate_history
 
     suite, start, count, sample, with_tasks = task
@@ -200,7 +258,54 @@ def _gen_chunk(task):
     oracle = {i: _oracle_row(hs[i - start]) + ((_oracle_tasks(hs[i - start]),)
                                                if with_tasks else ())
               for i in sample}
-    return hs, oracle
+    return hs, oracle, [serialize_history(h) for h in hs]
+
+
+def _closed_row(lanes):
+    """The oracle's witness of one generated history's [E, 18] lanes: its
+    payload row with sticky 0, or None when the history does not end
+    Completed with nothing pending."""
+    from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+    from cadence_tpu_torch.core.enums import WorkflowState
+    from cadence_tpu_torch.ops.encode import decode_lanes
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    ms = StateBuilder().replay_history(decode_lanes(lanes))
+    if (ms.execution_info.state != WorkflowState.Completed or ms.pending_activity_info_ids
+            or ms.pending_timer_info_ids or ms.pending_child_execution_info_ids):
+        return None
+    row = payload_row(ms)
+    row[STICKY_ROW_INDEX] = 0
+    return row
+
+
+def _gen_ns_oracle(task):
+    """The north star's oracle: one block of contiguous workflows of the
+    device generator, their lanes made by its plain version on the CPU,
+    decoded and replayed by the oracle. → (lanes, {index: row or None})."""
+    import torch
+
+    from cadence_tpu_torch.ops.genkernel import generate_lanes_plain
+
+    torch.set_num_threads(1)
+    start, count, events = task
+    lanes = generate_lanes_plain(SEED, start, count, events, "cpu").numpy()
+    return lanes, {start + i: _closed_row(lanes[i]) for i in range(count)}
+
+
+def _closed_rows(lanes):
+    """The oracle's witness of each history of a [W, E, 18] block."""
+    return [_closed_row(x) for x in lanes]
+
+
+def _gen_native_oracle(task):
+    """The host generator's oracle on sampled workflows: {index: row or
+    None}."""
+    from cadence_tpu_torch.native.gen_native import generate_corpus_native
+
+    indices, events = task
+    return {i: _closed_row(generate_corpus_native(SEED, i, 1, events, num_threads=1)[0][0])
+            for i in indices}
 
 
 def _gen_states(task):
@@ -387,16 +492,28 @@ def generate(args):
                  for s, n in _chunks(args.verify_per_suite, 512)])
     stasks = [(suite, s, n) for suite in SERVING_SUITES
               for s, n in _chunks(args.serving_per_suite, 256)]
+    ns_rng = np.random.default_rng(SEED + 6)
+    ntasks = [(int(b) * NS_BLOCK, NS_BLOCK, args.ns_events)
+              for b in sorted(ns_rng.choice(GEN_CHECK_W // NS_BLOCK, NS_BLOCKS, replace=False))]
+    native_sample = sorted(int(i) for i in ns_rng.choice(NATIVE_GEN_W, NATIVE_GEN_SAMPLE,
+                                                         replace=False))
+    gtasks = [(native_sample[k::8], args.ns_events) for k in range(8)]
+
+    from cadence_tpu_torch.native.build import load_generator
 
     t0 = time.perf_counter()
+    if load_generator() is None:  # built here once, before the workers load it
+        fail("generate: no g++ to build the host generator")
     with mp.get_context("spawn").Pool(os.cpu_count()) as pool:
         pending = [pool.map_async(fn, ts, chunksize=1) for fn, ts in (
             (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks),
-            (_gen_states, vtasks), (_gen_cut_states, rtasks), (_gen_serving, stasks))]
+            (_gen_states, vtasks), (_gen_cut_states, rtasks), (_gen_serving, stasks),
+            (_gen_ns_oracle, ntasks), (_gen_native_oracle, gtasks))]
         (main_parts, over_parts, chain_parts, tree_parts, state_parts, cut_parts,
-         serving_parts) = (p.get() for p in pending)
-    histories, oracle = _concat(tasks, main_parts)
-    over_h, over_oracle = _concat(otasks, over_parts)
+         serving_parts, ns_parts, native_parts) = (p.get() for p in pending)
+    histories, oracle = _concat(tasks, [(h, o) for h, o, _ in main_parts])
+    blobs = [b for _, _, part in main_parts for b in part]
+    over_h, over_oracle = _concat(otasks, [(h, o) for h, o, _ in over_parts])
     chain_lanes, chain_oracle = _concat(ctasks, chain_parts)
     return {
         "histories": histories, "oracle": oracle,
@@ -406,6 +523,10 @@ def generate(args):
         "verify_states": [ms for part in state_parts for ms in part],
         "cut_states": [ms for part in cut_parts for ms in part],
         "serving": [w for part in serving_parts for w in part],
+        "blobs": blobs,
+        "ns_blocks": [(task[0], lanes) for task, (lanes, _) in zip(ntasks, ns_parts)],
+        "ns_oracle": {i: row for _, orc in ns_parts for i, row in orc.items()},
+        "native_oracle": {i: row for part in native_parts for i, row in part.items()},
         "seconds": time.perf_counter() - t0,
     }
 
@@ -414,10 +535,11 @@ def generate(args):
 # Device helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int = REPS, setup=None, inner: int = 1):
-    """Median milliseconds of `fn` over `reps` timed runs (after one warm-up),
-    each run `inner` back-to-back calls between two CUDA events; `setup()`
-    runs before the first event and its result is `fn`'s argument."""
+def cuda_ms(fn, reps: int = REPS, setup=None, inner: int = 1, warm: bool = True):
+    """Median milliseconds of `fn` over `reps` timed runs (after one warm-up
+    unless `warm` is False), each run `inner` back-to-back calls between two
+    CUDA events; `setup()` runs before the first event and its result is
+    `fn`'s argument."""
     import torch
 
     def once():
@@ -431,7 +553,8 @@ def cuda_ms(fn, reps: int = REPS, setup=None, inner: int = 1):
         b.synchronize()
         return a.elapsed_time(b) / inner
 
-    once()
+    if warm:
+        once()
     return statistics.median(once() for _ in range(reps))
 
 
@@ -1003,6 +1126,301 @@ def serving_path(args, corp):
     return launches
 
 
+def gen_ops(W: int, E: int) -> int:
+    """Integer operations of generating W x E events (GEN_OPS_PER_EVENT)."""
+    return W * E * GEN_OPS_PER_EVENT
+
+
+def gen_kernels(args, corp, dev, records):
+    """Phases kernel_gen_lanes and kernel_replay_gen: kernel I and kernel
+    A's generator reader against their plain versions, against each other
+    and against the oracle, timed beside their bounds."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.enums import EventType
+    from cadence_tpu_torch.ops import _build, genkernel as G, replay as R
+    from cadence_tpu_torch.ops.payload import payload_rows
+    from cadence_tpu_torch.ops.state import init_state, leaves
+
+    W, E = GEN_CHECK_W, args.ns_events
+    launch = lambda run: run()  # noqa: E731
+    # --- kernel I, equal to its plain version with tolerance 0
+    lk = G.generate_lanes(SEED, 0, W, E, dev)
+    lp = G.generate_lanes_plain(SEED, 0, W, E, dev)
+    err_i = max_abs_err(lk, lp)
+    if err_i or not torch.equal(lk, lp):
+        fail(f"gen_lanes kernel differs from its plain version (max abs err {err_i})")
+    del lp
+    torch.cuda.empty_cache()
+    # every history closes: ids 1..E, Started first, Completed last
+    ids = torch.arange(1, E + 1, device=dev)
+    if (not bool((lk[:, :, 0] == ids).all())
+            or not bool((lk[:, 0, 1] == int(EventType.WorkflowExecutionStarted)).all())
+            or not bool((lk[:, -1, 1] == int(EventType.WorkflowExecutionCompleted)).all())):
+        fail("gen_lanes: a history does not run 1..E from Started to Completed")
+    # the oracle's sample: kernel I's lanes equal the CPU plain version's, and
+    # kernels A and B on them give the oracle's rows; the oracle found every
+    # sampled history Completed with nothing pending
+    s_a = R.replay_scan(init_state(W, device=dev), lk)
+    rows_a = payload_rows(s_a).cpu().numpy()
+    err_a = s_a.error.cpu().numpy()
+    bad = [start for start, lanes in corp["ns_blocks"]
+           if not np.array_equal(lk[start:start + len(lanes)].cpu().numpy(), lanes)]
+    if bad:
+        fail(f"gen_lanes: kernel I's lanes differ from the CPU plain version's at blocks {bad}")
+    orc = corp["ns_oracle"]
+    unclosed = [i for i, row in orc.items() if row is None]
+    parity = [i for i, row in orc.items() if row is not None
+              and (err_a[i] != 0 or not np.array_equal(rows_a[i], row))]
+    if unclosed or parity or (err_a != 0).any():
+        fail(f"gen_lanes: {len(unclosed)} sampled histories not closed, {len(parity)} rows "
+             f"differ from the oracle, {int((err_a != 0).sum())} rows with errors")
+    ms_i = cuda_ms(launch, setup=lambda: G.generate_lanes_launch(SEED, 0, W, E, dev)[0])
+    ms_ip = cuda_ms(lambda _: G.generate_lanes_plain(SEED, 0, W, E, dev), PLAIN_REPS)
+    torch.cuda.empty_cache()
+    regs_i = ptxas_usage(_build.build_log, "gen_lanes_kernel")
+    records.append(kernel_record(
+        "gen_lanes", "cadence_tpu_torch/csrc/genkernel.cu", "cadence_tpu/ops/genkernel.py:318",
+        None, err_i, ms_i, ms_ip, W * E * 144, gen_ops(W, E),
+        also_replaces=["cadence_tpu/ops/genkernel.py:135", "cadence_tpu/ops/genkernel.py:112"],
+        hook="cadence_tpu_torch/csrc/genkernel.cuh", shape=[W, E], ptxas=regs_i,
+        timed=f"median of {REPS} single launches; plain: median of {PLAIN_REPS}"))
+    emit("kernel_gen_lanes", workflows=W, events=E, lanes_bytes=W * E * 144, max_abs_err=err_i,
+         oracle_sampled=len(orc), oracle_equal=len(orc) - len(parity), closed=W,
+         ms=ms_i, plain_ms=ms_ip, bound_ms=W * E * 144 / HBM_BYTES_PER_S * 1e3, ptxas=regs_i)
+
+    # --- kernel A's generator reader: the state of kernel A on kernel I's
+    # lanes (the materialize-then-replay contract), and the plain fused loop
+    s_g = G.gen_scan(init_state(W, device=dev), SEED, 0, E)
+    states_equal(s_g, s_a, "replay_gen against kernel A on kernel I's lanes")
+    ops_w = gen_ops(W, E) + replay_ops(lk)
+    del lk, s_a
+    torch.cuda.empty_cache()
+    wc = args.gen_plain_w
+    s_gk = G.gen_scan(init_state(wc, device=dev), SEED, 0, E)
+    s_gp = G.gen_scan_plain(init_state(wc, device=dev), SEED, 0, E)
+    states_equal(s_gk, s_gp, f"replay_gen at {wc} x {E} against the plain fused loop")
+    err_g = max(max_abs_err(x, y) for (_, x), (_, y) in zip(leaves(s_gk), leaves(s_gp)))
+    del s_gk, s_gp
+    fresh = lambda n: init_state(n, device=dev)  # noqa: E731
+    ms_g = cuda_ms(launch, setup=lambda: G.gen_launch(fresh(W), SEED, 0, E))
+    ms_gp = cuda_ms(lambda st: G.gen_scan_plain(st, SEED, 0, E), 1, setup=lambda: fresh(W),
+                    warm=False)
+    sb = state_bytes(s_g)
+    fill = max(args.ns_chunks)
+    ms_fill = cuda_ms(launch, setup=lambda: G.gen_launch(fresh(fill), SEED, 0, E))
+    torch.cuda.empty_cache()
+    # the fill chunk's operations: the W-workflow count scaled to its width
+    ops_fill = ops_w * fill // W
+    sb_fill = sb // W * fill
+    bound = lambda nbytes, ops: max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3  # noqa
+    regs_g = ptxas_usage(_build.build_log, "replay_kernelILi3ELb0E")
+    records.append(kernel_record(
+        "replay_gen", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/genkernel.py:332",
+        None, err_g, ms_g, ms_gp, sb, ops_w,
+        also_replaces=["cadence_tpu/ops/genkernel.py:357", "cadence_tpu/ops/genkernel.py:371",
+                       "cadence_tpu/ops/genkernel.py:440", "cadence_tpu/ops/genkernel.py:462"],
+        hook="cadence_tpu_torch/csrc/genkernel.cuh", shape=[W, E], events_per_s=W * E / ms_g * 1e3,
+        fill_shape=[fill, E], fill_ms=ms_fill, fill_bound_ms=bound(sb_fill, ops_fill),
+        fill_events_per_s=fill * E / ms_fill * 1e3, ptxas=regs_g,
+        timed=f"median of {REPS} single launches, each on a fresh state; plain: one run"))
+    emit("kernel_replay_gen", equal_states=66, against=["kernel A on kernel I's lanes",
+                                                       f"the plain fused loop at {wc} x {E}"],
+         max_abs_err=err_g, ms=ms_g, plain_ms=ms_gp, bound_ms=bound(sb, ops_w),
+         events_per_s=W * E / ms_g * 1e3, fill_chunk=fill, fill_ms=ms_fill,
+         fill_bound_ms=bound(sb_fill, ops_fill), fill_events_per_s=fill * E / ms_fill * 1e3,
+         fill_state_bytes=sb_fill, ptxas=regs_g)
+    del s_g
+    torch.cuda.empty_cache()
+
+
+def north_star(args, corp, dev):
+    """Phase north_star, configuration ns-1m: bench.py's _north_star on the
+    card. Workflows rounded up to whole chunks, each chunk generated,
+    replayed, reduced to payload rows and hashed on the card through
+    generate_and_replay_sharded_crc over a mesh of one card (one code path),
+    at each chunk size of args.ns_chunks. Dispatch is depth 2: a chunk's
+    CRCs and errors are queued to page-locked memory right behind its
+    launches, the next chunk is launched, and only then does the host wait,
+    for that copy alone. Then bench.py's parity leg: kernel I makes the
+    sampled workflows' lanes, the oracle replays them, and their CRCs must
+    equal the first chunk's. Then the host generator's corpus through
+    kernels A and B. Returns the launch counts of three driven paths: the
+    timed chunk loops (north_star), the parity leg (north_star_parity) and
+    the host generator's replay (host_generator)."""
+    import multiprocessing as mp
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import crc32_of_rows
+    from cadence_tpu_torch.engine.executor import queue_to_host
+    from cadence_tpu_torch.native.gen_native import generate_corpus_native
+    from cadence_tpu_torch.ops import _build, genkernel as G, replay as R
+    from cadence_tpu_torch.ops.state import init_state
+    from cadence_tpu_torch.parallel.mesh import Mesh
+
+    E = args.ns_events
+    mesh = Mesh([dev])
+    row_bytes = state_bytes(init_state(1, device=dev))
+    launches = Counter()  # the timed chunk loops' launches, summed over the chunk sizes
+    runs, firsts = [], []
+    for chunk in args.ns_chunks:
+        chunk = min(chunk, args.ns_workflows)
+        n_chunks = -(-args.ns_workflows // chunk)
+
+        def run(lo):
+            return queue_to_host(G.generate_and_replay_sharded_crc(SEED, lo, chunk, E, mesh), dev)
+
+        t0 = time.perf_counter()
+        G.generate_and_replay_sharded_crc(SEED + 1, 0, chunk, E, mesh)[0].cpu()
+        warm_s = time.perf_counter() - t0
+        rates, errors_total, crc_xor = [], 0, 0
+        _build.reset_launches()
+        t_start = t_prev = time.perf_counter()
+        in_flight = run(0)
+        for ci in range(n_chunks):
+            (crc, errors), done = in_flight
+            if ci + 1 < n_chunks:  # depth 2: the next chunk is queued before this one is awaited
+                in_flight = run((ci + 1) * chunk)
+            done.synchronize()
+            crc_np = crc.numpy().astype(np.uint32)
+            err_np = errors.numpy()
+            now = time.perf_counter()
+            rates.append(chunk * E / (now - t_prev))
+            t_prev = now
+            errors_total += int((err_np != 0).sum())
+            crc_xor ^= int(np.bitwise_xor.reduce(crc_np))
+            if ci == 0:
+                firsts.append(crc_np)
+        wall = time.perf_counter() - t_start
+        launches.update(_build.launches)
+        if errors_total:
+            fail(f"north_star at chunk {chunk}: {errors_total} error workflows")
+        if not np.array_equal(firsts[-1][:len(firsts[0])], firsts[0][:len(firsts[-1])]):
+            fail("north_star: the chunk sizes disagree on the first workflows")
+        runs.append({"chunk_workflows": chunk, "chunks": n_chunks, "workflows": n_chunks * chunk,
+                     "real_events": n_chunks * chunk * E, "wall_s": wall,
+                     "events_per_s": n_chunks * chunk * E / wall,
+                     "chunk_rate_min": min(rates), "chunk_rate_median": statistics.median(rates),
+                     "chunk_rate_max": max(rates), "warm_s": warm_s,
+                     "error_workflows": errors_total, "crc_xor": crc_xor,
+                     "state_bytes": chunk * row_bytes})
+    launches = dict(launches)
+    check_launches(launches, "north_star", NORTH_STAR_KERNELS)
+
+    # bench.py's parity leg: kernel I makes the sampled workflows' lanes on
+    # the card (the fused path never holds them), the oracle replays them in
+    # a pool of workers, and their CRCs must equal the first chunk's
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    blocks = [(start, G.generate_lanes(SEED, start, len(lanes), E, dev).cpu().numpy())
+              for start, lanes in corp["ns_blocks"]]
+    parity_launches = dict(_build.launches)
+    check_launches(parity_launches, "north_star_parity", NORTH_STAR_PARITY_KERNELS)
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(min(len(blocks), os.cpu_count())) as pool:
+        block_rows = pool.map(_closed_rows, [lanes for _, lanes in blocks], chunksize=1)
+    t_oracle = time.perf_counter() - t0
+    want = {start + i: row for (start, _), rows in zip(blocks, block_rows)
+            for i, row in enumerate(rows)}
+    unclosed = [i for i, row in want.items() if row is None]
+    want_crc = {i: np.uint32(crc32_of_rows(row[None])[0]) for i, row in want.items()
+                if row is not None}
+    for run_, first in zip(runs, firsts):
+        run_["parity_samples"] = len(want)
+        run_["parity_failures"] = len(unclosed) + sum(1 for i, c in want_crc.items()
+                                                      if first[i] != c)
+        if run_["parity_failures"]:
+            fail(f"north_star at chunk {run_['chunk_workflows']}: {run_['parity_failures']} "
+                 f"parity failures against the oracle ({len(unclosed)} histories not closed)")
+
+    # the first chunk on a mesh of two slices of the card, and unsharded
+    c0 = min(args.ns_chunks)
+    one = G.generate_and_replay_sharded_crc(SEED, 0, c0, E, mesh)
+    two = G.generate_and_replay_sharded_crc(SEED, 0, c0, E, Mesh([dev] * 2))
+    flat = G.generate_and_replay_crc(SEED, 0, c0, E, device=dev)
+    if not all(torch.equal(a, b) for a, b in zip(one, two)) or \
+            not all(torch.equal(a, b) for a, b in zip(one, flat)):
+        fail("north_star: the mesh of two slices or the unsharded call differs from the mesh of 1")
+
+    # the host generator (native/generator.cc) through kernels A and B
+    t0 = time.perf_counter()
+    lanes, total = generate_corpus_native(SEED, 0, NATIVE_GEN_W, E)
+    t_gen = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rows, errors = R.replay_to_payload(lanes, device=dev)
+    rows, errors = rows.cpu().numpy(), errors.cpu().numpy()
+    t_replay = time.perf_counter() - t0
+    host_launches = dict(_build.launches)
+    check_launches(host_launches, "host_generator", HOST_GENERATOR_KERNELS)
+    nat = corp["native_oracle"]
+    bad = [i for i, row in nat.items() if row is None or not np.array_equal(rows[i], row)]
+    if (errors != 0).any() or bad:
+        fail(f"north_star: the host generator's corpus has {int((errors != 0).sum())} error "
+             f"rows and {len(bad)} sampled rows that differ from the oracle")
+    emit("north_star", config="ns-1m" if args.ns_workflows == NS_WORKFLOWS else "ns-small",
+         requested_workflows=args.ns_workflows, max_events=E, seed=SEED, runs=runs,
+         mesh2_and_unsharded_equal=True,
+         parity_leg={"samples": len(want), "oracle_s": t_oracle, "launches": parity_launches},
+         host_generator={"workflows": NATIVE_GEN_W, "events": total, "generate_s": t_gen,
+                         "generate_events_per_s": total / t_gen, "replay_s": t_replay,
+                         "error_workflows": 0, "oracle_sampled": len(nat),
+                         "oracle_equal": len(nat), "launches": host_launches},
+         launches=launches)
+    return launches, parity_launches, host_launches
+
+
+def feeder_path(corp, dev, rows, crcs, errors, real):
+    """Phase feeder_path: the suites corpus's wire bytes through the three
+    feeders at 4,096 workflows a chunk. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.native import feeder as F
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.utils import metrics as M
+
+    from cadence_tpu_torch.ops.encode import history_length
+
+    blobs = corp["blobs"]
+    E = max(history_length(h) for h in corp["histories"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = {}
+    for name, fn in (("feed_serialized", F.feed_serialized),
+                     ("feed_serialized32", F.feed_serialized32),
+                     ("feed_serialized_wirec", F.feed_serialized_wirec)):
+        M.DEFAULT_REGISTRY.reset()
+        first, errs, rep = fn(blobs, E, chunk_workflows=4096, device=dev)
+        if name == "feed_serialized":
+            if not np.array_equal(first, rows):
+                fail("feeder_path: feed_serialized's rows differ from replay_corpus's")
+        elif not np.array_equal(first, crcs):
+            fail(f"feeder_path: {name}'s CRCs differ from the int64 path's")
+        if not np.array_equal(errs, errors):
+            fail(f"feeder_path: {name}'s errors differ from replay_corpus's")
+        if rep.events != real:
+            fail(f"feeder_path: {name} counted {rep.events} events, not {real}")
+        if name == "feed_serialized_wirec" and not rep.native_wirec:
+            fail("feeder_path: the native wirec encoder did not serve")
+        h2d = rep.h2d_s or M.DEFAULT_REGISTRY.histogram(M.SCOPE_TPU_REPLAY, M.M_PROFILE_H2D).total
+        out[name] = {"chunks": rep.chunks, "events": rep.events, "wall_s": rep.wall_s,
+                     "events_per_s": rep.events_per_sec, "pack_s": rep.pack_s,
+                     "pack_queue_wait_s": rep.pack_queue_wait_s, "h2d_s": h2d,
+                     "depth": rep.depth, "native_wirec": rep.native_wirec,
+                     "profile_refits": rep.profile_refits, "wire_bytes": rep.wire_bytes}
+    launches = dict(_build.launches)
+    check_launches(launches, "feeder_path", FEEDER_PATH_KERNELS)
+    emit("feeder_path", workflows=len(blobs), max_events=E, real_events=real,
+         blob_bytes=sum(len(b) for b in blobs), feeds=out, launches=launches)
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -1022,6 +1440,10 @@ def main() -> int:
     args.verify_per_suite = 2048 if full else 128
     args.serving_per_suite = 1024 if full else 64
     args.lanes_e = 128
+    args.ns_workflows = NS_WORKFLOWS if full else GEN_CHECK_W
+    args.ns_events = NS_EVENTS if full else 200
+    args.ns_chunks = NS_CHUNKS
+    args.gen_plain_w = 4096
 
     import torch
 
@@ -1172,6 +1594,9 @@ def main() -> int:
          bytes_per_event=wc.bytes_per_event(), lanes_bytes_per_event=events_np.nbytes / real,
          wire32_bytes_per_event=wire_np.nbytes / real, slab_bytes_per_row=int(wc.slab.shape[2]),
          h2d_ms=h2d, launches=wirec_launches)
+
+    # --- feeder_path: the same histories' wire bytes through the pipelined feeders
+    feeder_launches = feeder_path(corp, dev, rows, crcs, errors, real)
 
     # --- 3. each kernel against its plain version, at the main path's shapes; timed
     ev = torch.from_numpy(events_np).to(dev)
@@ -1458,6 +1883,13 @@ def main() -> int:
         on_main_path=False))
     emit("kernel_decode_wirec", max_abs_err=err_e, equal_to_lanes=True, ms=ms_e, plain_ms=ms_ep)
     del s_k, s_p, s_k32, s_kw, wide, ev, ev32, d_k, slab_d, bases_d, n_d
+    torch.cuda.empty_cache()
+
+    # kernel I and kernel A's generator reader
+    gen_kernels(args, corp, dev, records)
+
+    # --- north_star (ns-1m): the device generator fused into kernel A
+    ns_launches, parity_launches, host_gen_launches = north_star(args, corp, dev)
 
     # --- 4. the paths the suites never reach
     task_checks = {}
@@ -1697,6 +2129,8 @@ def main() -> int:
 
     # --- the summary lines
     paths = {"main_path": main_launches, "wirec_path": wirec_launches,
+             "feeder_path": feeder_launches, "north_star": ns_launches,
+             "north_star_parity": parity_launches, "host_generator": host_gen_launches,
              "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches,
              "verify_path": verify_launches, "resident_path": resident_launches,
              "serving_path": serving_launches}

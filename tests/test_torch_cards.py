@@ -134,3 +134,27 @@ def test_streaming_on_one_card(lanes):
     rows, errors = replay_streamed(lanes, 16, device="cuda")
     want_rows, want_errors = replay_streamed(lanes, 16, device="cpu")
     assert np.array_equal(rows, want_rows) and np.array_equal(errors, want_errors)
+
+
+def test_sharded_generator_across_cards():
+    """The north star's code path on every card: the fused generator,
+    replay, payload and CRC, each shard on its own card, equal to one card
+    and to the unsharded call; and the feeder over the cards."""
+    from cadence_tpu_torch.native.feeder import feed_corpus
+    from cadence_tpu_torch.ops.genkernel import (generate_and_replay_crc,
+                                                 generate_and_replay_sharded,
+                                                 generate_and_replay_sharded_crc)
+
+    cards = _cards(4)
+    one = pm.Mesh([cards.devices[0]])
+    W = 1024 * cards.size
+    _equal(generate_and_replay_sharded_crc(SEED, 0, W, 200, cards),
+           generate_and_replay_sharded_crc(SEED, 0, W, 200, one))
+    _equal(generate_and_replay_sharded(SEED, 4096, W, 200, cards),
+           generate_and_replay_sharded(SEED, 4096, W, 200, one))
+    _equal(generate_and_replay_sharded_crc(SEED, 0, W, 200, one),
+           generate_and_replay_crc(SEED, 0, W, 200, device=cards.devices[0]))
+    hists = generate_corpus("timer_retry", 256, seed=SEED, target_events=60)
+    got = feed_corpus(hists, chunk_workflows=64, mesh=cards)
+    want = feed_corpus(hists, chunk_workflows=64, mesh=one)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])

@@ -14,7 +14,7 @@ import torch
 from cadence_tpu.engine.executor import BulkReplayExecutor as JExecutor
 from cadence_tpu.utils import metrics as jm
 from cadence_tpu.utils.profiler import ReplayProfiler as JProfiler
-from cadence_tpu_torch.engine.executor import BulkReplayExecutor, pipeline_depth
+from cadence_tpu_torch.engine.executor import BulkReplayExecutor, pipeline_depth, queue_to_host
 from cadence_tpu_torch.parallel.mesh import Mesh
 from cadence_tpu_torch.utils import metrics as m
 from cadence_tpu_torch.utils.profiler import ReplayProfiler
@@ -120,6 +120,14 @@ def test_cpu_launches_need_no_marker():
     the ring waits on them. No device named means the card."""
     assert BulkReplayExecutor(device="cpu")._launched_markers() == []
     assert BulkReplayExecutor(mesh=Mesh(["cpu", "cpu"]))._launched_markers() == []
+
+
+def test_queue_to_host_on_the_cpu_hands_the_tensors_back():
+    # a CPU launch has finished when it returns: nothing to copy or await
+    ts = (torch.arange(6), torch.zeros(3, dtype=torch.int32))
+    host, done = queue_to_host(ts, torch.device("cpu"))
+    assert done is None
+    assert all(h is t for h, t in zip(host, ts))
 
 
 def test_no_device_named_means_the_card(monkeypatch):

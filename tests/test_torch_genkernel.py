@@ -1,0 +1,243 @@
+"""The port's device generator (cadence_tpu_torch/ops/genkernel.py) against
+the JAX package's ops/genkernel.py, on the CPU, where every entry point
+runs the plain version: the same (seed, first index, W, E) give the same
+lanes, the same fused payload rows, errors and CRCs, sharded or not, and
+the same hash and die values on int64's edges. Every value is an integer:
+the tolerance is 0. Shapes are tests/test_genkernel.py's (W=32, E=120)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cadence_tpu.ops import genkernel as jg
+from cadence_tpu.core.checksum import crc32_of_rows
+from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+from cadence_tpu_torch.core.enums import EventType, WorkflowState
+from cadence_tpu_torch.ops import genkernel as tg
+from cadence_tpu_torch.ops.encode import decode_lanes
+from cadence_tpu_torch.ops.replay import replay_to_payload
+from cadence_tpu_torch.oracle.state_builder import StateBuilder
+from cadence_tpu_torch.parallel.mesh import Mesh
+
+W, E = 32, 120
+E_SHARDED = 60
+SEEDS = (42, 43)
+I64_MIN, I64_MAX = int(np.iinfo(np.int64).min), int(np.iinfo(np.int64).max)
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def jax_lanes():
+    return {seed: np.asarray(jg.generate_lanes(seed, 0, W, E)) for seed in SEEDS}
+
+
+@pytest.fixture(scope="module")
+def port_lanes():
+    return {seed: tg.generate_lanes(seed, 0, W, E, device=CPU).numpy() for seed in SEEDS}
+
+
+@pytest.fixture(scope="module")
+def jax_fused():
+    return {seed: tuple(map(np.asarray, jg.generate_and_replay(seed, 0, W, E))) for seed in SEEDS}
+
+
+@pytest.fixture(scope="module")
+def port_fused():
+    return {seed: tuple(t.numpy() for t in tg.generate_and_replay(seed, 0, W, E, device=CPU))
+            for seed in SEEDS}
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_generate_lanes_equal(seed, jax_lanes, port_lanes):
+    assert port_lanes[seed].dtype == np.int64 and port_lanes[seed].shape == (W, E, 18)
+    assert np.array_equal(port_lanes[seed], jax_lanes[seed])
+
+
+def test_reproducible_and_distinct(port_lanes):
+    lanes = port_lanes[42]
+    assert np.array_equal(tg.generate_lanes(42, 0, W, E, device=CPU).numpy(), lanes)
+    assert len({lanes[i].tobytes() for i in range(W)}) == W
+    assert not np.array_equal(port_lanes[43], lanes)
+
+
+def test_every_slot_is_a_real_event_and_histories_close(port_lanes):
+    lanes = port_lanes[42]
+    assert (lanes[:, :, 0] == np.arange(1, E + 1)[None, :]).all()
+    assert (lanes[:, 0, 1] == int(EventType.WorkflowExecutionStarted)).all()
+    assert (lanes[:, 1, 1] == int(EventType.DecisionTaskScheduled)).all()
+    assert (lanes[:, -1, 1] == int(EventType.WorkflowExecutionCompleted)).all()
+
+
+@pytest.mark.parametrize("seed", [I64_MIN, I64_MAX, I64_MIN + 1, -1, -5, 0, 42, 20260730])
+def test_mix_equal_on_int64_edges(seed):
+    w = np.array([0, 1, -1, 7, I64_MIN, I64_MAX, 123456789, -987654321], dtype=np.int64)
+    for step, salt in ((0, 17), (1, 1), (999, 4), (123456, 3)):
+        want = np.asarray(jg._mix(jnp.int64(seed), jnp.asarray(w), step, salt))
+        got = tg._mix(seed, torch.from_numpy(w), step, salt).numpy()
+        assert np.array_equal(got, want), (seed, step, salt)
+    # a seed given as a tensor hashes as the Python int does
+    got_t = tg._mix(torch.tensor(seed, dtype=torch.int64), torch.from_numpy(w), 5, 2)
+    assert np.array_equal(got_t.numpy(), tg._mix(seed, torch.from_numpy(w), 5, 2).numpy())
+
+
+@pytest.mark.parametrize("n", [5000, 6600, 16, 8, 1_000_000])
+def test_die_equal_on_int64_edges(n):
+    r = np.array([I64_MIN, I64_MIN + 1, I64_MAX, -1, -8, -808, 0, 1, 4999, 5000, -5001],
+                 dtype=np.int64)
+    want = np.asarray(jg._die(jnp.asarray(r), n))
+    got = tg._die(torch.from_numpy(r), n).numpy()
+    assert np.array_equal(got, want)
+    assert ((got >= 0) & (got < n)).all()
+
+
+def test_die_of_int64_min_is_floor_modulo():
+    """abs(INT64_MIN) wraps to INT64_MIN, and the floor modulo takes the
+    divisor's sign: 4192, where C's truncating % gives -808."""
+    assert int(jg._die(jnp.int64(I64_MIN), 5000)) == 4192
+    assert int(tg._die(torch.tensor([I64_MIN]), 5000)[0]) == 4192
+    assert int(jnp.int64(-8) >> 1) == -4 and int(torch.tensor(-8) >> 1) == -4
+
+
+@pytest.mark.parametrize("seed", [I64_MIN, -3, 42])
+def test_init_gen_state_equal(seed):
+    want = jg.init_gen_state(W, seed, 5)
+    got = tg.init_gen_state(W, seed, 5, device=CPU)
+    for name in jg.GenState._fields:
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+def test_first_equal():
+    rng = np.random.default_rng(4)
+    mask = rng.random((64, 4)) < 0.3
+    mask[:5] = False  # rows with nothing set select nothing
+    onehot_j, any_j = map(np.asarray, jg._first(jnp.asarray(mask)))
+    onehot_t, any_t = tg._first(torch.from_numpy(mask))
+    assert np.array_equal(onehot_t.numpy(), onehot_j) and np.array_equal(any_t.numpy(), any_j)
+    assert not onehot_t[:5].any()
+
+
+@pytest.mark.parametrize("split", [8, 24])
+def test_first_index_seams(split, jax_lanes):
+    """Workflow w depends only on (seed, w): chunks at any first index
+    reproduce the JAX package's one-shot lanes."""
+    lo = tg.generate_lanes(42, 0, split, E, device=CPU).numpy()
+    hi = tg.generate_lanes(42, split, W - split, E, device=CPU).numpy()
+    assert np.array_equal(np.concatenate([lo, hi]), jax_lanes[42])
+
+
+def test_fused_seam_at_8(jax_fused):
+    """0 + 8 = 16: two fused chunks give the one-shot rows."""
+    lo, _ = tg.generate_and_replay(42, 0, 8, E, device=CPU)
+    hi, _ = tg.generate_and_replay(42, 8, 8, E, device=CPU)
+    assert np.array_equal(torch.cat([lo, hi]).numpy(), jax_fused[42][0][:16])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fused_rows_and_errors_equal(seed, jax_fused, port_fused):
+    rows_j, err_j = jax_fused[seed]
+    rows_t, err_t = port_fused[seed]
+    assert (err_j == 0).all()
+    assert np.array_equal(rows_t, rows_j) and np.array_equal(err_t, err_j)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fused_crc_equal(seed, jax_fused):
+    rows_j, err_j = jax_fused[seed]
+    crc_j = crc32_of_rows(rows_j)  # jg.generate_and_replay_crc's contract
+    crc_t, err_t = tg.generate_and_replay_crc(seed, 0, W, E, device=CPU)
+    assert np.array_equal(crc_t.numpy().astype(np.uint32), crc_j)
+    assert np.array_equal(err_t.numpy(), err_j)
+
+
+def test_fused_equals_materialized(port_lanes, port_fused):
+    rows_m, err_m = replay_to_payload(port_lanes[42], device=CPU)
+    rows_f, err_f = port_fused[42]
+    assert np.array_equal(rows_f, rows_m.numpy()) and np.array_equal(err_f, err_m.numpy())
+
+
+def test_fused_state_equals_the_plain_loop_in_place():
+    from cadence_tpu_torch.ops.state import init_state, leaves
+
+    s = init_state(8, device=CPU)
+    fresh = init_state(8, device=CPU)
+    out = tg.gen_scan(s, 3, 100, 40)
+    assert out is s
+    want = tg.gen_scan_plain(fresh, 3, 100, 40)
+    for (name, a), (_, b) in zip(leaves(s), leaves(want)):
+        assert torch.equal(a, b), name
+    assert int(fresh.next_event_id[0]) == 1  # the plain loop left its input as it was
+
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    import jax
+
+    from cadence_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(jax.devices()[:8])  # conftest forces the 8-device CPU mesh
+    rows, err = map(np.asarray, jg.generate_and_replay_sharded(11, 0, W, E_SHARDED, mesh))
+    # the CRC form's contract: the hash of these rows (the JAX package's
+    # generate_and_replay_sharded_crc does not trace under this JAX's
+    # shard_map varying-axes typing, so its rows are hashed here)
+    return rows, err, crc32_of_rows(rows), err
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_sharded_equal(n, jax_sharded):
+    rows_j, err_j, _, _ = jax_sharded
+    rows_t, err_t = tg.generate_and_replay_sharded(11, 0, W, E_SHARDED, Mesh([CPU] * n))
+    assert np.array_equal(rows_t.numpy(), rows_j) and np.array_equal(err_t.numpy(), err_j)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_crc_equal(n, jax_sharded):
+    _, _, crc_j, err_j = jax_sharded
+    crc_t, err_t = tg.generate_and_replay_sharded_crc(11, 0, W, E_SHARDED, Mesh([CPU] * n))
+    assert np.array_equal(crc_t.numpy().astype(np.uint32), crc_j)
+    assert np.array_equal(err_t.numpy(), err_j)
+
+
+@pytest.mark.parametrize("fn", [tg.generate_and_replay_sharded, tg.generate_and_replay_sharded_crc])
+def test_sharded_raises_when_w_does_not_split(fn):
+    with pytest.raises(ValueError, match="not divisible"):
+        fn(11, 0, 65, E, Mesh([CPU] * 8))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_oracle_parity(seed, port_lanes, port_fused):
+    rows, errors = port_fused[seed]
+    assert (errors == 0).all()
+    for i in range(W):
+        ms = StateBuilder().replay_history(decode_lanes(port_lanes[seed][i]))
+        expected = payload_row(ms)
+        expected[STICKY_ROW_INDEX] = 0
+        assert np.array_equal(rows[i], expected), f"workflow {i} diverged"
+        assert ms.execution_info.state == WorkflowState.Completed
+        assert not ms.pending_activity_info_ids
+        assert not ms.pending_timer_info_ids
+        assert not ms.pending_child_execution_info_ids
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tg.generate_lanes(1, 0, 4, 8),
+    lambda: tg.generate_and_replay(1, 0, 4, 8),
+    lambda: tg.generate_and_replay_crc(1, 0, 4, 8),
+    lambda: tg.generate_and_replay_state(1, 0, 4, 8),
+], ids=["generate_lanes", "generate_and_replay", "generate_and_replay_crc", "state"])
+def test_entry_points_raise_without_cuda(call, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_launches_refuse_the_cpu():
+    from cadence_tpu_torch.ops import _build
+
+    before = dict(_build.launches)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tg.generate_lanes_launch(1, 0, 4, 8, device=CPU)
+    tg.generate_lanes(1, 0, 4, 8, device=CPU)
+    tg.generate_and_replay(1, 0, 4, 8, device=CPU)
+    assert _build.launches == before  # the plain versions never count

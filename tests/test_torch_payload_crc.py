@@ -78,3 +78,22 @@ def test_crc32_rows(seed):
     assert np.array_equal(got.numpy(), want)
     zl = np.array([zlib.crc32(r.astype("<i8").tobytes()) for r in rows], dtype=np.int64)
     assert np.array_equal(got.numpy(), zl)
+
+
+@pytest.mark.parametrize("suite", ["basic", "echo_signal", "timer_retry", "concurrent_child",
+                                   "ndc", "overflow"])
+def test_replay_to_crc(suite):
+    """ops/crc.replay_to_crc (kernels A, B and C in turn) against the JAX
+    package's, on tests/test_device_crc.py's shapes: the same CRCs and
+    errors, overflowing rows included."""
+    from cadence_tpu.ops.crc import replay_to_crc as j_replay_to_crc
+    from cadence_tpu_torch.ops.crc import replay_to_crc
+
+    ev = pad_events(j_encode.encode_corpus(generate_corpus(suite, 24, seed=3, target_events=60)),
+                    num_workflows=24)
+    crc_j, err_j = (np.asarray(x) for x in j_replay_to_crc(ev, DEFAULT_LAYOUT))
+    crc, err = replay_to_crc(ev, DEFAULT_LAYOUT, device="cpu")
+    assert np.array_equal(crc.numpy().astype(np.uint32), crc_j)
+    assert np.array_equal(err.numpy(), err_j)
+    if suite == "overflow":
+        assert (err_j != 0).any()

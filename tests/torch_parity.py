@@ -176,3 +176,18 @@ def overflow_chain(pkg):
     for ev in flood_acts[4:]:
         complete(ev)
     return prefix, append1, list(w.batches)
+
+
+def reference_native() -> None:
+    """Load the JAX package's native libraries for a test that compares
+    with them. Its build writes each library through one fixed temporary
+    name, so test workers that collect at the same moment on a fresh
+    checkout can race on it, and a worker that lost the race remembers the
+    failure for the rest of its life. By the time a test runs, collection
+    is over and the winner's library is in place: forget the failures and
+    load again."""
+    from cadence_tpu.native import build as jb
+
+    jb._load_failed.clear()
+    for load in (jb.load, jb.load_wirec, jb.load_generator):
+        assert load() is not None, f"the JAX package's {load.__name__} found no library"
