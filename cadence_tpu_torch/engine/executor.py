@@ -39,9 +39,11 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -220,14 +222,6 @@ class BulkReplayExecutor:
 # ---------------------------------------------------------------------------
 
 
-def sync_devices(devices) -> None:
-    """Wait for every launch queued so far on each CUDA device's current
-    stream."""
-    for dev in dict.fromkeys(devices):
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-
-
 def queue_to_host(tensors, device) -> tuple:
     """Queue a copy of each tensor into page-locked host memory behind the
     launches queued so far on `device`'s current stream, and record an
@@ -243,19 +237,44 @@ def queue_to_host(tensors, device) -> tuple:
         return host, torch.cuda.current_stream(device).record_event()
 
 
+def queue_shards(devices, outs) -> list:
+    """queue_to_host of each shard's output tensors on its own device, in
+    mesh order: the lag-1 pull of one chunk, queued right behind its
+    launches and before the next chunk's."""
+    return [queue_to_host(o, dev) for dev, o in zip(devices, outs)]
+
+
+def wait_for(pulls) -> list:
+    """Wait for one chunk's queued copies alone (the chunk launched after
+    it keeps the card busy meanwhile); returns each shard's host tensors."""
+    for _, done in pulls:
+        if done is not None:
+            done.synchronize()
+    return [host for host, _ in pulls]
+
+
+def read_back(pulls, prof=None) -> tuple:
+    """wait_for, then each output concatenated over the shards, as numpy.
+    With a profiler, the wait is its kernel leg and the concatenation its
+    readback leg."""
+    with prof.leg(m.M_PROFILE_KERNEL) if prof else nullcontext():
+        hosts = wait_for(pulls)
+    with prof.leg(m.M_PROFILE_READBACK) if prof else nullcontext():
+        return tuple(np.concatenate([h[k].numpy() for h in hosts]) for k in range(len(hosts[0])))
+
+
 def replay_corpus_mesh(events, mesh=None, layout=None, chunk_workflows: Optional[int] = None,
                        depth: Optional[int] = None, registry=None):
     """Serve a packed [W, E, L] int64 corpus from the mesh (None: the
     serving mesh, see parallel/mesh.serving_mesh): chunks fan across the
     mesh's devices (per-device slice copies, per-device ring discipline),
     each shard runs kernel A, then B, and keeps its current branch, and
-    the host reads rows, errors and branch back per chunk with lag 1.
+    the host reads rows, errors and branch back per chunk with lag 1,
+    each chunk's copies queued behind its launches (queue_to_host).
 
     Returns (payload rows [W, width], errors [W], current branch [W],
     PipelineReport). Any mesh gives the same rows: sharding the workflow
     axis never changes a row's result."""
-    import numpy as np
-
     from ..core.checksum import DEFAULT_LAYOUT
     from ..ops.encode import LANE_EVENT_ID, LANE_EVENT_TYPE
     from ..ops.payload import payload_rows
@@ -308,15 +327,10 @@ def replay_corpus_mesh(events, mesh=None, layout=None, chunk_workflows: Optional
         with prof.leg(m.M_PROFILE_H2D):
             parts = place_corpus(sub, mesh)
             prof.h2d(sub.nbytes)
-        return run_shards(mesh, parts, shard)
+        return queue_shards(mesh.devices, run_shards(mesh, parts, shard))
 
-    def consume(ci, outs):
-        with prof.leg(m.M_PROFILE_KERNEL):
-            sync_devices(mesh.devices)
-        with prof.leg(m.M_PROFILE_READBACK):
-            return tuple(np.concatenate([o[k].cpu().numpy() for o in outs]) for k in range(3))
-
-    results, report = executor.run(len(spans), pack, launch, consume)
+    results, report = executor.run(len(spans), pack, launch,
+                                   lambda ci, pulls: read_back(pulls, prof))
     rows = np.concatenate([r for r, _, _ in results])[:W]
     errors = np.concatenate([e for _, e, _ in results])[:W]
     branch = np.concatenate([b for _, _, b in results])[:W]
@@ -332,8 +346,6 @@ def stream_wirec_mesh(corpus, mesh=None, layout=None, n_chunks: int = 1,
     workflow back). `n_chunks` must divide W and keep every shard whole.
 
     Returns (crc32 [W] uint32, errors [W], PipelineReport)."""
-    import numpy as np
-
     from ..core.checksum import DEFAULT_LAYOUT
     from ..ops.wirec import WirecCorpus
     from ..parallel.mesh import _replay_wirec_crc_with_stats, run_shards, serving_mesh, shard_wirec
@@ -355,14 +367,11 @@ def stream_wirec_mesh(corpus, mesh=None, layout=None, n_chunks: int = 1,
     executor = BulkReplayExecutor(depth=depth, registry=registry, mesh=mesh)
 
     def launch(ci, c):
-        return run_shards(mesh, shard_wirec(c, mesh), lambda dev, p: _replay_wirec_crc_with_stats(
+        outs = run_shards(mesh, shard_wirec(c, mesh), lambda dev, p: _replay_wirec_crc_with_stats(
             *p, c.profile, layout))
+        return queue_shards(mesh.devices, [(crc, err) for crc, err, _ in outs])
 
-    def consume(ci, outs):
-        sync_devices(mesh.devices)
-        return (np.concatenate([crc.cpu().numpy() for crc, _, _ in outs]).astype(np.uint32),
-                np.concatenate([err.cpu().numpy() for _, err, _ in outs]))
-
-    results, report = executor.run(len(chunks), chunks.__getitem__, launch, consume)
-    return (np.concatenate([c for c, _ in results]),
+    results, report = executor.run(len(chunks), chunks.__getitem__, launch,
+                                   lambda ci, pulls: read_back(pulls))
+    return (np.concatenate([c for c, _ in results]).astype(np.uint32),
             np.concatenate([e for _, e in results]), report)

@@ -26,8 +26,8 @@ recovery path is stateRebuilder per workflow, state_rebuilder.go:102).
 All stores are thread-safe.
 
 This is the JAX package's engine/persistence.py, copied: it holds no JAX.
-The one difference is the device visibility twin (VisibilityStore
-._device_view), which raises until its slice is ported.
+The one addition is `VisibilityStore.device`, where the device visibility
+twin keeps its columns (None: the card).
 """
 from __future__ import annotations
 
@@ -872,6 +872,9 @@ class VisibilityStore:
         #: cluster registry for the device twin's tpu.visibility series
         #: (None = the process-global default)
         self.metrics = None
+        #: where the device twin keeps its columns (None = the card; a
+        #: query with the tier on and no card raises)
+        self.device = None
         #: monotone mutation sequence — the device view's staleness is
         #: measured as (this - its applied sequence)
         self._seq = 0
@@ -997,20 +1000,29 @@ class VisibilityStore:
         return out
 
     def _device_view(self):
-        """The columnar device twin of this store, which
-        CADENCE_TPU_VISIBILITY enables in the JAX package, belongs to the
-        port's device-visibility slice, which is not ported yet: with the
-        knob on, a routed query raises rather than quietly answering from
-        the host; with it off (or unset) the host evaluation below serves,
-        as in the JAX package."""
+        """The columnar device twin, created lazily on the first routed
+        query when CADENCE_TPU_VISIBILITY enables the tier (bootstrap
+        enqueues every existing record under the lock, so the delta
+        stream the write hooks feed is gap-free from sequence 1). The
+        cheap env probe runs before the module import, so a disabled
+        process never pays for the device tier's dependencies."""
         import os
-        env = os.environ.get("CADENCE_TPU_VISIBILITY", "")
-        if not env.strip() or env.strip().lower() in ("0", "false", "off", "no"):
+        if not os.environ.get("CADENCE_TPU_VISIBILITY", "").strip():
             return None
-        raise NotImplementedError(
-            "CADENCE_TPU_VISIBILITY: the device visibility twin "
-            "(engine/visibility_device.py) is not ported yet; it comes with the "
-            "device-visibility slice (ops/scan.py). Unset the knob to query on the host.")
+        from . import visibility_device as vd
+        if not vd.enabled():
+            return None
+        if self._device is None:
+            with self._lock:
+                if self._device is None:
+                    dev = vd.DeviceVisibilityView(registry=self.metrics,
+                                                  device=self.device)
+                    for rec in self._records.values():
+                        self._seq += 1
+                        dev.enqueue_upsert(self._seq, rec)
+                    vd.register(dev)
+                    self._device = dev
+        return self._device
 
     def _query_locked(self, domain_id: str, pred, hints
                       ) -> List[VisibilityRecord]:

@@ -182,10 +182,10 @@ class DeviceRebuilder:
         from ..ops.encode import LANE_EVENT_TYPE, encode_corpus, history_length
         from ..ops.payload import payload_rows
         from ..ops.replay import replay_events_with_tasks
-        from ..ops.state import CAPACITY_ERRORS
+        from ..ops.state import CAPACITY_ERRORS, leaves
         from ..utils.profiler import ReplayProfiler
         from ..parallel.mesh import place_corpus, run_shards
-        from .executor import BulkReplayExecutor, sync_devices
+        from .executor import BulkReplayExecutor, queue_shards, wait_for
         from .ladder import EscalationLadder
 
         if self.ladder is None:
@@ -236,19 +236,25 @@ class DeviceRebuilder:
             with prof.leg(m.M_PROFILE_H2D):
                 parts = place_corpus(corpus, mesh)
                 prof.h2d(corpus.nbytes)
-            return run_shards(mesh, parts, shard)
+            outs = run_shards(mesh, parts, shard)
+            # rows and every state tensor, queued to the host behind this
+            # chunk's launches
+            return outs, queue_shards(mesh.devices, [(r,) + tuple(t for _, t in leaves(s))
+                                                     for s, r in outs])
 
-        def consume(ci, outs):
+        def consume(ci, launched):
+            outs, pulls = launched
             with prof.leg(m.M_PROFILE_KERNEL):
-                # each device's one stream: this waits for every chunk
-                # launched so far
-                sync_devices(mesh.devices)
+                hosts = wait_for(pulls)
             with prof.leg(m.M_PROFILE_READBACK):
-                rows = np.concatenate([r.cpu().numpy() for _, r in outs])
-                if len(outs) == 1:
-                    return rows, _host_state(outs[0][0])
-                return rows, map_state(lambda *ts: np.concatenate([t.cpu().numpy() for t in ts]),
-                                       *(s for s, _ in outs))
+                rows = np.concatenate([h[0].numpy() for h in hosts])
+                states = []
+                for (s, _), h in zip(outs, hosts):
+                    arrays = iter(h[1:])
+                    states.append(map_state(lambda _t: next(arrays).numpy(), s))
+                if len(states) == 1:
+                    return rows, states[0]
+                return rows, map_state(lambda *ts: np.concatenate(ts), *states)
 
         t0 = time.perf_counter()
         with scope.timed():

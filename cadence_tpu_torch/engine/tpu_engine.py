@@ -58,7 +58,7 @@ from ..ops.stats import stats
 from ..utils import metrics as m
 from ..utils.profiler import ReplayProfiler
 from .cache import PackCache
-from .executor import BulkReplayExecutor, sync_devices
+from .executor import BulkReplayExecutor, queue_shards, wait_for
 from .ladder import EscalationLadder
 from .persistence import Stores
 from . import resident as resident_mod
@@ -314,9 +314,12 @@ class TPUReplayEngine:
 
         pack_extra(chunk_keys, plan) -> host extras packed beside the
         corpus in the pack pool (sized [plan.W, ...] in row space);
-        launch_fn(parts, extras) -> the shards' device outputs, given the
-        corpus's per-shard tensors in mesh order;
-        readback_fn(outs) -> numpy results per chunk (row space);
+        launch_fn(parts, extras) -> (the tensors to read back, a tuple per
+        shard in mesh order; anything else the readback needs), given the
+        corpus's per-shard tensors in mesh order; the tensors are queued to
+        page-locked host memory behind the chunk's launches;
+        readback_fn(hosts, kept) -> numpy results per chunk (row space),
+        given each shard's host tensors once that chunk's copies are done;
         escalate_fn(ci, corpus_np, consumed) -> consumed, optional: called
         right after chunk ci's readback with its host corpus (held only
         until then: at most `depth` corpora are retained).
@@ -361,13 +364,15 @@ class TPUReplayEngine:
             with prof.leg(m.M_PROFILE_H2D):
                 parts = place_corpus(corpus, mesh)
                 prof.h2d(corpus.nbytes)
-            return launch_fn(parts, extras)
+            pull, kept = launch_fn(parts, extras)
+            return queue_shards(mesh.devices, pull), kept
 
-        def consume(ci, outs):
+        def consume(ci, launched):
+            pulls, kept = launched
             with prof.leg(m.M_PROFILE_KERNEL):
-                sync_devices(mesh.devices)
+                hosts = wait_for(pulls)
             with prof.leg(m.M_PROFILE_READBACK):
-                return readback_fn(outs)
+                return readback_fn(hosts, kept)
 
         def escalate(ci, consumed):
             return escalate_fn(ci, corpora.pop(ci), consumed)
@@ -399,11 +404,12 @@ class TPUReplayEngine:
             state = replay_events(ev, self.layout, dev)
             return payload_rows(state, self.layout), state.error, state.current_branch
 
-        def readback(outs):
-            return tuple(np.concatenate([o[k].cpu().numpy() for o in outs]) for k in range(3))
+        def readback(hosts, _kept):
+            return tuple(np.concatenate([h[k].numpy() for h in hosts]) for k in range(3))
 
         results, plans = self._run_chunks(
-            keys, None, lambda parts, _extras: run_shards(self.mesh, parts, shard), readback)
+            keys, None, lambda parts, _extras: (run_shards(self.mesh, parts, shard), None),
+            readback)
         rows = np.zeros((len(keys), self.layout.width), dtype=np.int64)
         errors = np.zeros((len(keys),), dtype=np.int32)
         branch = np.zeros((len(keys),), dtype=np.int32)
@@ -558,18 +564,18 @@ class TPUReplayEngine:
             expected, exp_branch = extras
             outs = run_shards(mesh, zip(parts, place_corpus(expected, mesh),
                                         place_corpus(exp_branch, mesh)), shard)
-            return outs, expected, exp_branch
+            return ([(mm, st.error, counts) for mm, st, counts in outs],
+                    (expected, exp_branch, [st for _, st, _ in outs]))
 
-        def readback(launched):
-            outs, expected, exp_branch = launched
-            mismatch = np.concatenate([mm.cpu().numpy() for mm, _, _ in outs])
-            # the error lanes come back only from shards whose counts
-            # (16 bytes) show a row with an error
+        def readback(hosts, kept):
+            expected, exp_branch, states = kept
+            mismatch = np.concatenate([h[0].numpy() for h in hosts])
+            # the error lanes are read only for shards whose counts show a
+            # row with an error
             errors = np.concatenate([
-                st.error.cpu().numpy() if int(counts[0])
-                else np.zeros(st.error.shape[0], np.int32)
-                for _, st, counts in outs])
-            return mismatch, errors, expected, exp_branch, [st for _, st, _ in outs]
+                err.numpy() if int(counts[0]) else np.zeros(err.shape[0], np.int32)
+                for _, err, counts in hosts])
+            return mismatch, errors, expected, exp_branch, states
 
         def escalate(ci, corpus, consumed):
             mismatch, errors, expected, exp_branch, states = consumed

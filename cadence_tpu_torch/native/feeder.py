@@ -39,7 +39,7 @@ import numpy as np
 
 from ..core.checksum import DEFAULT_LAYOUT, PayloadLayout
 from ..device import resolve_device
-from ..engine.executor import BulkReplayExecutor, queue_to_host
+from ..engine.executor import BulkReplayExecutor, queue_shards, read_back
 from ..utils import metrics as m
 from ..utils.profiler import ReplayProfiler
 from . import packing
@@ -119,18 +119,7 @@ def _placement(mesh, device):
 def _queue_read_back(place, outs) -> list:
     """Queue each shard's (first, errors) to page-locked host memory right
     behind its launches, before the next chunk is launched."""
-    return [queue_to_host(o[:2], dev) for dev, o in zip(place.devices, outs)]
-
-
-def _read_back(prof, pulls):
-    """Wait for this chunk's copies alone (the chunk launched after it
-    keeps the card busy meanwhile), then read (first, errors)."""
-    with prof.leg(m.M_PROFILE_KERNEL):
-        for _, done in pulls:
-            if done is not None:
-                done.synchronize()
-    with prof.leg(m.M_PROFILE_READBACK):
-        return tuple(np.concatenate([host[k].numpy() for host, _ in pulls]) for k in range(2))
+    return queue_shards(place.devices, [o[:2] for o in outs])
 
 
 def _feed(blobs: Sequence[bytes], max_events: int, chunk_workflows: int,
@@ -173,7 +162,7 @@ def _feed(blobs: Sequence[bytes], max_events: int, chunk_workflows: int,
                                                   lambda dev, ev: replay_fn(ev, layout, dev)))
 
     start = time.perf_counter()
-    results, prep = executor.run(n_chunks, pack, launch, lambda ci, pulls: _read_back(prof, pulls))
+    results, prep = executor.run(n_chunks, pack, launch, lambda ci, pulls: read_back(pulls, prof))
     first = np.concatenate([r for r, _ in results])[:total]
     errors = np.concatenate([e for _, e in results])[:total]
     report.chunks = prep.chunks
@@ -343,7 +332,7 @@ def feed_serialized_wirec(blobs: Sequence[bytes], max_events: int, chunk_workflo
             *p, corpus.profile, layout, dev)))
 
     start = time.perf_counter()
-    results, prep = executor.run(n_chunks, pack, launch, lambda ci, pulls: _read_back(prof, pulls))
+    results, prep = executor.run(n_chunks, pack, launch, lambda ci, pulls: read_back(pulls, prof))
     first = np.concatenate([r for r, _ in results])[:total].astype(np.uint32)
     errors = np.concatenate([e for _, e in results])[:total]
     report.chunks = prep.chunks

@@ -140,6 +140,16 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_replay_gen.restype = I
     # state pointer table, seed, first index, W, E, K[5], B, Kv, stream
     lib.cadence_replay_gen.argtypes = [P, L, L, L, L, P, I, I, P]
+    lib.cadence_vis_mask.restype = I
+    # program table, columns, instructions, leaves, valid, N, count, bitmap (or null), stream
+    lib.cadence_vis_mask.argtypes = [P, I, I, I, P, L, P, P, P]
+    lib.cadence_vis_topk.restype = I
+    # program table, columns, instructions, leaves, valid, start, N, k, key and tag scratch,
+    # ids, count, stream
+    lib.cadence_vis_topk.argtypes = [P, I, I, I, P, P, L, L, P, P, P, P, P]
+    lib.cadence_vis_apply.restype = I
+    # pointer table (columns, values, element sizes), C, idx, B, N, stream
+    lib.cadence_vis_apply.argtypes = [P, I, P, L, L, P]
 
 
 def load() -> ctypes.CDLL:
@@ -163,7 +173,7 @@ def check(rc: int, what: str) -> None:
 #: nowhere else (the plain versions never count)
 launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "payload": 0, "crc32": 0,
             "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0,
-            "gen_lanes": 0, "replay_gen": 0}
+            "gen_lanes": 0, "replay_gen": 0, "vis_mask": 0, "vis_topk": 0, "vis_apply": 0}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,509 @@
+"""Columnar visibility scans: query AST -> per-row mask, count, bitmap,
+top-k page, and the delta scatter that keeps the columns current.
+
+The JAX package's ops/scan.py in two halves:
+
+- the host half, copied as it is: the op and column codes,
+  `UnsupportedPredicate`, `ScanPlan`, `plan_leaf_int`, `compile_plan` and
+  `pow2_bucket`. `compile_plan` gives the JAX one's signature, iparams and
+  fparams for the same AST and binder;
+- the device half, as functions on tensors that take the plan at run
+  time. Nothing compiles per shape, so the JAX package's `build_*`
+  closures and their kernel-variant cache have no counterpart here.
+
+The device half on the card (csrc/scan.cu):
+
+- `scan_count` and `scan_bitmap` are kernel J (`cadence_vis_mask`): the
+  plan's predicate per row, `& valid`, summed, and with a bitmap packed
+  1 bit a row in numpy's big bit order;
+- `scan_topk` is kernel K (`cadence_vis_topk`): the first k row ids in
+  (matching first, start time descending, row ascending) order, and the
+  count;
+- `scan_apply` is kernel L (`cadence_vis_apply`): one delta batch
+  scattered into every column, pads and out-of-range indices dropped.
+
+The plan reaches the kernels as a postfix program (`program`): one int64
+word per leaf or and/or node, the children of a node ordered so that the
+deeper one runs first, which keeps the evaluation stack at most
+log2(leaves) + 1 entries deep (kernel J holds it in one 64-bit
+register). On the CPU the wrappers run the plain versions below, which
+evaluate the same program with a stack of bool tensors; on the card they
+launch the kernel or raise. Each has a `*_launch` twin that makes every
+check and argument first and returns the launch (see _build.launcher).
+
+Host parity is the contract: every op code reproduces the host
+evaluator's semantics exactly — missing values never match, IEEE NaN
+(the float column's null) never matches, and cross-type comparisons
+reduce at PLAN time to constant TRUE/FALSE leaves mirroring Python's
+`==`-is-False / `<`-is-TypeError split. Ordering comparisons on interned
+string columns cannot be expressed on device (interning does not
+preserve lexicographic order) — the binder refuses them and the store
+falls back to the host path (counted, never silently divergent).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..engine.visibility_query import And, Cmp, Node, Or
+from . import _build
+
+#: interned-id null (row has no value in this column)
+NULL_ID = -1
+
+#: leaf op codes (structural — part of the plan's signature)
+OP_FALSE = 0    # never matches (cross-type ordering, unknown column)
+OP_TRUE = 1     # always matches (e.g. int column != non-integral float)
+OP_EQ = 2
+OP_NE = 3       # guarded by presence on nullable columns
+OP_LT = 4
+OP_LE = 5
+OP_GT = 6
+OP_GE = 7
+OP_PRESENT = 8  # matches iff the row has a value (id/f64 `!=` vs
+                # cross-type constant: present values always differ)
+
+#: column kinds (structural)
+COL_ID = "id"    # int64 interned ids, NULL_ID = missing; EQ/NE/PRESENT
+COL_I64 = "i64"  # int64, always present (times, status); all six ops
+COL_F64 = "f64"  # float64 numeric search attrs, NaN = missing
+
+_INT64_MAX = (1 << 63) - 1
+_INT64_MIN = -(1 << 63)
+
+
+class UnsupportedPredicate(Exception):
+    """The query needs host evaluation (string ordering, a column past
+    the intern budget, a type-poisoned column). Not an error: the store
+    counts it (`reason` picks the fallback counter — "predicate" for an
+    inexpressible op, "column" for a column the device cannot carry)
+    and serves the host path."""
+
+    def __init__(self, msg: str, reason: str = "predicate") -> None:
+        super().__init__(msg)
+        self.reason = reason
+
+
+class ScanPlan:
+    """One compiled query: the structural signature (hashable) plus this
+    query's parameter vectors.
+
+    `leaves` is a tuple of (kind, op_code, slot) triples; `tree` is the
+    nested ("and"|"or"|int) structure over leaf indices. `slots` names
+    the columns the kernels consume, in the order the store must pass
+    them. Parameters are NOT part of the signature: they ride the
+    int64/float64 vectors, so same-shape queries share one program
+    structure."""
+
+    def __init__(self, tree, leaves: Tuple, slots: Tuple[str, ...],
+                 iparams, fparams) -> None:
+        self.tree = tree
+        self.leaves = leaves
+        self.slots = slots
+        self.iparams = iparams
+        self.fparams = fparams
+
+    @property
+    def signature(self):
+        return (self.tree, self.leaves, self.slots)
+
+    def __hash__(self):
+        return hash(self.signature)
+
+    def __eq__(self, other):
+        return (isinstance(other, ScanPlan)
+                and self.signature == other.signature)
+
+
+def plan_leaf_int(op: str, value: object):
+    """Normalize a numeric comparison against an int64 column into an
+    exact int64 (op_code, param) — or a constant leaf when Python-exact
+    semantics say so. Python compares int/float EXACTLY (5 < 5.3 and
+    5 == 5.0 are value comparisons, not casts); float64 cannot represent
+    every int64, so the float is folded into the integer lattice here at
+    plan time instead of casting the column on device."""
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        # bool is int in Python but never produced by the parser; any
+        # non-numeric value vs an always-present int column: == False,
+        # != True, ordering TypeError→False
+        return {"!=": (OP_TRUE, 0)}.get(op, (OP_FALSE, 0))
+    if isinstance(value, float):
+        if value != value or value in (float("inf"), float("-inf")):
+            if value == float("inf"):
+                return ((OP_TRUE, 0) if op in ("<", "<=", "!=")
+                        else (OP_FALSE, 0))
+            if value == float("-inf"):
+                return ((OP_TRUE, 0) if op in (">", ">=", "!=")
+                        else (OP_FALSE, 0))
+            return (OP_TRUE, 0) if op == "!=" else (OP_FALSE, 0)  # NaN
+        if float(value).is_integer() and _INT64_MIN <= value <= _INT64_MAX:
+            value = int(value)
+        else:
+            # non-integral: no int equals it; order against the floor
+            f = math.floor(value)
+            if f >= _INT64_MAX:
+                lo_ops = ("<", "<=")
+                return ((OP_TRUE, 0) if op in lo_ops or op == "!="
+                        else (OP_FALSE, 0))
+            if f < _INT64_MIN:
+                hi_ops = (">", ">=")
+                return ((OP_TRUE, 0) if op in hi_ops or op == "!="
+                        else (OP_FALSE, 0))
+            return {
+                "=": (OP_FALSE, 0), "!=": (OP_TRUE, 0),
+                "<": (OP_LE, f), "<=": (OP_LE, f),
+                ">": (OP_GE, f + 1), ">=": (OP_GE, f + 1),
+            }[op]
+    if not _INT64_MIN <= value <= _INT64_MAX:
+        # beyond int64: every stored value is on one known side
+        if value > _INT64_MAX:
+            return ((OP_TRUE, 0) if op in ("<", "<=", "!=")
+                    else (OP_FALSE, 0))
+        return ((OP_TRUE, 0) if op in (">", ">=", "!=")
+                else (OP_FALSE, 0))
+    return {"=": (OP_EQ, value), "!=": (OP_NE, value),
+            "<": (OP_LT, value), "<=": (OP_LE, value),
+            ">": (OP_GT, value), ">=": (OP_GE, value)}[op]
+
+
+def compile_plan(node: Node, binder) -> ScanPlan:
+    """Walk the AST into a ScanPlan. `binder.leaf(field, op, value)`
+    resolves one comparison into (kind, op_code, slot_name, iparam,
+    fparam) — the store owns column naming, interning and budget — and
+    raises UnsupportedPredicate to route the whole query to the host."""
+    leaves = []
+    slots: list = []
+    iparams: list = []
+    fparams: list = []
+
+    def walk(n):
+        if isinstance(n, And):
+            return ("and", walk(n.left), walk(n.right))
+        if isinstance(n, Or):
+            return ("or", walk(n.left), walk(n.right))
+        assert isinstance(n, Cmp)
+        kind, op_code, slot_name, ip, fp = binder.leaf(n.field, n.op,
+                                                       n.value)
+        if slot_name is None:
+            slot = -1
+        else:
+            if slot_name not in slots:
+                slots.append(slot_name)
+            slot = slots.index(slot_name)
+        leaves.append((kind, op_code, slot))
+        iparams.append(int(ip))
+        fparams.append(float(fp))
+        return len(leaves) - 1
+
+    tree = walk(node)
+    return ScanPlan(tree, tuple(leaves), tuple(slots),
+                    np.asarray(iparams, dtype=np.int64),
+                    np.asarray(fparams, dtype=np.float64))
+
+
+def pow2_bucket(n: int, floor: int = 64) -> int:
+    """Smallest pow2 ≥ max(n, floor) — delta batches and capacities land
+    on shared shapes instead of minting one per exact size."""
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
+
+
+# ---------------------------------------------------------------------------
+# The plan as a postfix program (what kernels J and K and the plain
+# versions run)
+# ---------------------------------------------------------------------------
+
+#: instruction tags, the low byte of a program word
+T_FALSE, T_TRUE, T_LEAF, T_AND, T_OR = range(5)
+#: a leaf word's column kind, bits 8-15
+KIND_CODE = {COL_ID: 0, COL_I64: 1, COL_F64: 2}
+#: the deepest evaluation stack kernel J holds (one uint64 register)
+MAX_STACK = 64
+
+_I64_OPS = (OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE)
+_F64_OPS = _I64_OPS + (OP_PRESENT,)
+
+
+def program(plan: ScanPlan) -> Tuple[list, int]:
+    """(int64 words, stack depth) of the plan in postfix order. A leaf
+    word is T_LEAF | kind << 8 | op << 16 | slot << 24 | leaf index << 40
+    (OP_FALSE and OP_TRUE leaves become the constants T_FALSE and T_TRUE);
+    an and/or word is its tag. Of a node's two children the one needing
+    the deeper stack runs first (and/or over masks commute), so the depth
+    is at most log2(leaves) + 1; a plan past MAX_STACK all the same is
+    refused as UnsupportedPredicate, the counted host fallback."""
+    def emit(n):
+        if isinstance(n, tuple):
+            op, left, right = n
+            lw, ld = emit(left)
+            rw, rd = emit(right)
+            if rd > ld:
+                lw, ld, rw, rd = rw, rd, lw, ld
+            return lw + rw + [T_AND if op == "and" else T_OR], max(ld, rd + 1)
+        kind, op, slot = plan.leaves[n]
+        if op == OP_FALSE:
+            return [T_FALSE], 1
+        if op == OP_TRUE:
+            return [T_TRUE], 1
+        if not (kind == COL_ID or (kind == COL_I64 and op in _I64_OPS)
+                or (kind == COL_F64 and op in _F64_OPS)) or slot < 0:
+            raise ValueError(f"leaf {n}: op {op} on a {kind} column (slot {slot})")
+        return [T_LEAF | KIND_CODE[kind] << 8 | op << 16 | slot << 24 | n << 40], 1
+
+    words, depth = emit(plan.tree)
+    if depth > MAX_STACK:
+        raise UnsupportedPredicate(f"plan needs a stack of {depth} (> {MAX_STACK})")
+    return words, depth
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and what chip_smoke.py holds each kernel to)
+# ---------------------------------------------------------------------------
+
+def _leaf_plain(kind: int, op: int, col: torch.Tensor, ip: int, fp: float) -> torch.Tensor:
+    if kind == KIND_CODE[COL_F64]:
+        present = ~torch.isnan(col)
+        if op == OP_NE:
+            return present & (col != fp)
+        if op == OP_PRESENT:
+            return present
+        # IEEE: every comparison against NaN is already False
+        return {OP_EQ: col == fp, OP_LT: col < fp, OP_LE: col <= fp,
+                OP_GT: col > fp, OP_GE: col >= fp}[op]
+    if kind == KIND_CODE[COL_ID]:
+        if op == OP_EQ:
+            return col == ip
+        if op == OP_NE:
+            return (col != NULL_ID) & (col != ip)
+        return col != NULL_ID  # OP_PRESENT
+    return {OP_EQ: col == ip, OP_NE: col != ip, OP_LT: col < ip,
+            OP_LE: col <= ip, OP_GT: col > ip, OP_GE: col >= ip}[op]
+
+
+def mask_plain(plan: ScanPlan, cols: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """[N] bool: the plan's predicate per row, & valid — the plan's
+    program run over a stack of bool tensors."""
+    words, _ = program(plan)
+    stack = []
+    for w in words:
+        tag = w & 0xFF
+        if tag in (T_AND, T_OR):
+            b, a = stack.pop(), stack.pop()
+            stack.append(a & b if tag == T_AND else a | b)
+        elif tag == T_LEAF:
+            leaf = w >> 40
+            stack.append(_leaf_plain((w >> 8) & 0xFF, (w >> 16) & 0xFF, cols[(w >> 24) & 0xFFFF],
+                                     int(plan.iparams[leaf]), float(plan.fparams[leaf])))
+        else:
+            stack.append(torch.full_like(valid, tag == T_TRUE))
+    return stack.pop() & valid
+
+
+def scan_count_plain(plan, cols, valid) -> torch.Tensor:
+    """int64 scalar: rows whose mask is set."""
+    return mask_plain(plan, cols, valid).sum(dtype=torch.int64)
+
+
+#: numpy's big bit order: row 8j is bit 7 of byte j
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def scan_bitmap_plain(plan, cols, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(uint8 [ceil(N/8)], int64 scalar): the mask packed as jnp.packbits
+    packs it, an [N/8, 8] weighted sum, and the count."""
+    mask = mask_plain(plan, cols, valid)
+    pad = -mask.shape[0] % 8
+    m = torch.cat([mask, mask.new_zeros(pad)]) if pad else mask
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=m.device)
+    bits = (m.view(-1, 8).to(torch.int32) * weights).sum(1).to(torch.uint8)
+    return bits, mask.sum(dtype=torch.int64)
+
+
+def topk_order_plain(mask: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Every row id in the JAX package's lexsort((arange, -start, ~mask))
+    order: two stable sorts, first by -start (which wraps, so a row with
+    start INT64_MIN sorts first among its part), then by ~mask."""
+    neg = torch.where(start == _INT64_MIN, start, -start.clamp(min=_INT64_MIN + 1))
+    order = torch.sort(neg, stable=True).indices
+    return order[torch.sort((~mask[order]).to(torch.uint8), stable=True).indices]
+
+
+def scan_topk_plain(plan, k: int, cols, valid, start) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int64 [k], int64 scalar): the first k row ids in (matching first,
+    start DESC, row ASC) order, and the match count."""
+    mask = mask_plain(plan, cols, valid)
+    return topk_order_plain(mask, start)[:k], mask.sum(dtype=torch.int64)
+
+
+def scan_apply_plain(cols: Sequence[torch.Tensor], idx: torch.Tensor,
+                     vals: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Write vals[c][b] to cols[c][idx[b]] in place, as `c.at[idx].set(v,
+    mode="drop")`: a negative index wraps once (NumPy-style), then every
+    index outside [0, N) is dropped. Returns the columns."""
+    n = cols[0].shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    keep = (idx >= 0) & (idx < n)
+    rows = idx[keep]
+    for c, v in zip(cols, vals):
+        c.index_copy_(0, rows, v[keep])
+    return tuple(cols)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the plain version on the CPU, kernels J, K and L on the card
+# ---------------------------------------------------------------------------
+
+def _device_of(valid: torch.Tensor, what: str) -> torch.device:
+    dev = valid.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
+
+
+def _to_card(words, dtype, dev: torch.device) -> torch.Tensor:
+    """A small host table copied to the card behind the launches queued
+    on its current stream (through page-locked memory, so the copy does
+    not wait for them)."""
+    return torch.tensor(words, dtype=dtype).pin_memory().to(dev, non_blocking=True)
+
+
+def _program_args(plan: ScanPlan, cols, valid: torch.Tensor, what: str):
+    """(device table, column count, instruction count, leaf count) of
+    kernel J's and K's program, after checking every column: contiguous,
+    [N] on valid's card, int64 (id, i64) or float64 (f64)."""
+    n = valid.shape[0]
+    if n < 64 or n % 64 or n >= 1 << 31:
+        raise ValueError(f"{what}: {n} rows; the kernels take a multiple of 64 below 2^31")
+    _build.require(valid, torch.bool, (n,), f"{what} valid")
+    if len(cols) != len(plan.slots):
+        raise ValueError(f"{what}: {len(cols)} columns for {len(plan.slots)} slots")
+    kinds = {}
+    for kind, _op, slot in plan.leaves:
+        if slot >= 0:
+            kinds[slot] = kind
+    for slot, col in enumerate(cols):
+        dtype = torch.float64 if kinds.get(slot) == COL_F64 else torch.int64
+        _build.require(col, dtype, (n,), f"{what} column {plan.slots[slot]!r}", valid.device)
+    words, _ = program(plan)
+    fbits = np.asarray(plan.fparams, dtype=np.float64).view(np.int64)
+    table = ([c.data_ptr() for c in cols] + words + [int(v) for v in plan.iparams]
+             + [int(v) for v in fbits])
+    return _to_card(table, torch.int64, valid.device), len(cols), len(words), len(plan.leaves)
+
+
+def scan_count(plan: ScanPlan, cols, valid: torch.Tensor) -> torch.Tensor:
+    """int64 scalar match count: kernel J on the card, the plain version
+    on the CPU."""
+    if _device_of(valid, "scan_count").type == "cpu":
+        return scan_count_plain(plan, cols, valid)
+    with torch.cuda.device(valid.device):
+        launch, out = scan_count_launch(plan, cols, valid)
+        launch()
+    return out
+
+
+def scan_count_launch(plan: ScanPlan, cols, valid: torch.Tensor):
+    """Check what kernel J takes; return (its launch, the int64 scalar it
+    writes)."""
+    launch, (_, count) = _mask_launch(plan, cols, valid, bitmap=False)
+    return launch, count
+
+
+def scan_bitmap(plan: ScanPlan, cols, valid: torch.Tensor):
+    """(uint8 [N/8] bitmap, int64 scalar count): kernel J on the card, the
+    plain version on the CPU."""
+    if _device_of(valid, "scan_bitmap").type == "cpu":
+        return scan_bitmap_plain(plan, cols, valid)
+    with torch.cuda.device(valid.device):
+        launch, out = scan_bitmap_launch(plan, cols, valid)
+        launch()
+    return out
+
+
+def scan_bitmap_launch(plan: ScanPlan, cols, valid: torch.Tensor):
+    """Check what kernel J takes; return (its launch, (bitmap, count))."""
+    return _mask_launch(plan, cols, valid, bitmap=True)
+
+
+def _mask_launch(plan, cols, valid, bitmap: bool):
+    table, n_cols, n_ins, n_leaves = _program_args(plan, cols, valid, "scan")
+    n = valid.shape[0]
+    count = torch.empty((), dtype=torch.int64, device=valid.device)
+    bits = torch.empty((n // 8,), dtype=torch.uint8, device=valid.device) if bitmap else None
+    launch = _build.launcher("vis_mask", _build.load().cadence_vis_mask, table, n_cols, n_ins,
+                             n_leaves, valid, n, count, bits if bitmap else None,
+                             _build.stream_of(valid))
+    launch.outputs = tuple(cols)  # the pointer table points into them
+    return launch, (bits, count)
+
+
+def scan_topk(plan: ScanPlan, k: int, cols, valid: torch.Tensor, start: torch.Tensor):
+    """(int64 [k] row ids, int64 scalar count): kernel K on the card, the
+    plain version on the CPU."""
+    if _device_of(valid, "scan_topk").type == "cpu":
+        return scan_topk_plain(plan, k, cols, valid, start)
+    with torch.cuda.device(valid.device):
+        launch, out = scan_topk_launch(plan, k, cols, valid, start)
+        launch()
+    return out
+
+
+def scan_topk_launch(plan: ScanPlan, k: int, cols, valid: torch.Tensor, start: torch.Tensor):
+    """Check what kernel K takes; return (its launch, (ids, count)). The
+    sort's scratch (12 bytes a row) is allocated here."""
+    table, n_cols, n_ins, n_leaves = _program_args(plan, cols, valid, "scan_topk")
+    n = valid.shape[0]
+    if not 0 < k <= n:
+        raise ValueError(f"scan_topk: k = {k} for {n} rows")
+    _build.require(start, torch.int64, (n,), "scan_topk start", valid.device)
+    dev = valid.device
+    keys = torch.empty((n,), dtype=torch.int64, device=dev)
+    tags = torch.empty((n,), dtype=torch.int32, device=dev)
+    ids = torch.empty((k,), dtype=torch.int64, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    launch = _build.launcher("vis_topk", _build.load().cadence_vis_topk, table, n_cols, n_ins,
+                             n_leaves, valid, start, n, k, keys, tags, ids, count,
+                             _build.stream_of(valid))
+    launch.outputs = tuple(cols)
+    return launch, (ids, count)
+
+
+def scan_apply(cols: Sequence[torch.Tensor], idx: torch.Tensor,
+               vals: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Scatter one delta batch into every column, in place: kernel L on
+    the card, the plain version on the CPU. Returns the columns. The
+    indices must be distinct once wrapped (the view never passes a
+    duplicate); pads and indices outside [-N, N) are dropped."""
+    if _device_of(idx, "scan_apply").type == "cpu":
+        return scan_apply_plain(cols, idx, vals)
+    with torch.cuda.device(idx.device):
+        launch, out = scan_apply_launch(cols, idx, vals)
+        launch()
+    return out
+
+
+def scan_apply_launch(cols: Sequence[torch.Tensor], idx: torch.Tensor,
+                      vals: Sequence[torch.Tensor]):
+    """Check what kernel L takes; return (its launch, the columns it
+    writes in place)."""
+    if not cols or len(cols) != len(vals):
+        raise ValueError(f"scan_apply: {len(cols)} columns, {len(vals)} value tensors")
+    n, b = cols[0].shape[0], idx.shape[0]
+    _build.require(idx, torch.int64, (b,), "scan_apply idx")
+    for i, (c, v) in enumerate(zip(cols, vals)):
+        if c.element_size() not in (1, 8):
+            raise ValueError(f"scan_apply: column {i} has {c.element_size()}-byte elements")
+        _build.require(c, c.dtype, (n,), f"scan_apply column {i}", idx.device)
+        _build.require(v, c.dtype, (b,), f"scan_apply values {i}", idx.device)
+    table = _to_card([c.data_ptr() for c in cols] + [v.data_ptr() for v in vals]
+                     + [c.element_size() for c in cols], torch.int64, idx.device)
+    launch = _build.launcher("vis_apply", _build.load().cadence_vis_apply, table, len(cols),
+                             idx, b, n, _build.stream_of(idx))
+    launch.outputs = tuple(cols) + tuple(vals)
+    return launch, tuple(cols)
+

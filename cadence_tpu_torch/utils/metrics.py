@@ -2,8 +2,8 @@
 part of the JAX package's utils/metrics.py that the port's device layers
 write to (the escalation ladder, the native wirec dispatcher, the bulk
 executor, the device rebuilder, the replay engine, the pack cache, the
-resident pool, the serving scheduler, the snapshot tier and the replay
-profiler), under the same scope and metric names.
+resident pool, the serving scheduler, the snapshot tier, the device
+visibility view and the replay profiler), under the same scope and metric names.
 
 Histograms are fixed-bucket (prometheus `le` semantics) with interpolated
 percentiles, as in the JAX package; the Prometheus text exposition of the
@@ -47,6 +47,10 @@ SCOPE_TPU_SERVING = "tpu.serving"
 #: gauge says whether the compiled library loads in this process,
 #: native-packs / python-packs count which encoder served each pack
 SCOPE_TPU_NATIVE = "tpu.native"
+#: the columnar device visibility tier (engine/visibility_device.py +
+#: ops/scan.py): List/Scan/Count served as vectorized mask kernels over
+#: device-resident columns; counters below under M_VIS_*
+SCOPE_TPU_VISIBILITY = "tpu.visibility"
 
 M_LATENCY = "latency"
 M_KERNEL_LAUNCHES = "kernel-launches"
@@ -127,6 +131,42 @@ M_SNAP_ENTRIES = "snapshot-entries"
 M_NATIVE_AVAILABLE = "available"
 M_NATIVE_PACKS = "native-packs"
 M_NATIVE_PY_PACKS = "python-packs"
+
+#: columnar device visibility tier (engine/visibility_device.py,
+#: SCOPE_TPU_VISIBILITY): `queries` counts every routed List/Scan/Count,
+#: split into `device-served` (mask kernel answered) vs `host-fallbacks`
+#: (evaluated on the host instead — `fallback-predicate` the query uses
+#: an op/column the kernels can't express (e.g. string ordering),
+#: `fallback-column` a search-attribute column past the intern budget or
+#: type-poisoned). `parity-divergence` counts device answers that
+#: disagreed with the host oracle (served the HOST answer, gated at 0);
+#: `topk-serves` vs `bitmap-scans` splits paged readback strategies,
+#: `topk-escalations` counts pages that re-ran through the bitmap path
+#: (boundary tie / truncation). `deltas-applied`/`drains` meter the
+#: coalescing appender; `staleness-pending` is the backlog a query
+#: observed before its flush (the recorded staleness gauge), and
+#: `rows`/`attr-columns`/`interned-strings` mirror column occupancy.
+M_VIS_QUERIES = "queries"
+M_VIS_DEVICE_SERVED = "device-served"
+M_VIS_HOST_FALLBACKS = "host-fallbacks"
+M_VIS_FALLBACK_PREDICATE = "fallback-predicate"
+M_VIS_FALLBACK_COLUMN = "fallback-column"
+M_VIS_PARITY_CHECKS = "parity-checks"
+M_VIS_DIVERGENCE = "parity-divergence"
+M_VIS_TOPK = "topk-serves"
+M_VIS_BITMAP = "bitmap-scans"
+M_VIS_TOPK_ESCALATIONS = "topk-escalations"
+M_VIS_DELTAS = "deltas-applied"
+M_VIS_DRAINS = "drains"
+M_VIS_STALENESS = "staleness-pending"
+M_VIS_ROWS = "rows"
+M_VIS_ATTR_COLUMNS = "attr-columns"
+M_VIS_INTERNED = "interned-strings"
+M_VIS_SCAN_LATENCY = "scan-latency"
+#: LFU attr-column swaps: an over-budget search attribute out-demanded
+#: the least-queried resident column and took its slot — queries on it
+#: stop permanently falling back (visibility_device._maybe_replace_attr)
+M_VIS_ATTR_REPLACEMENTS = "attr-column-replacements"
 
 
 def ladder_rung_rows(rung: int) -> str:

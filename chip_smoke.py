@@ -131,10 +131,27 @@ Phases, one JSON line each:
      and every resident entry's payload and device state the oracle's final
      row. Prints transactions/s, flushes, coalescing, queue-wait and flush
      percentiles and the path counts.
+ 10. kernel_vis: kernels J (vis_mask: count and bitmap), K (vis_topk) and
+     L (vis_apply) on the device visibility table at 16,777,216 rows (7
+     builtin and 16 attribute columns, 3.1 GB, bench.py's population shape
+     from seed 20260804): bench.py's six selectivity queries and a 12-leaf
+     and/or plan through J and through K at k = 128 and 4,096, and delta
+     batches of 512 and 65,536 rows (pads, one negative index) through L,
+     each equal to its plain version (tolerance 0) and timed beside its
+     bound.
+ 11. visibility_path: Stores().visibility with CADENCE_TPU_VISIBILITY=1 on
+     the card over bench.py's population at 1,048,576 records and a `ties`
+     domain of 4,096 records on 16 start times: with parity on, the six
+     queries as Count and List, a page walk of the ties domain at 100 a
+     page (every page escalates) and a string-ordering query that must
+     count as fallback-predicate; with parity off, Count and List timed
+     beside the host's Count (equal); then 4,096 closes, 1,024 upserts of a
+     new attribute (a restage) and 512 deletes, each read back by a Count
+     with parity on. Parity divergence must be 0.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
-rebuild_path, verify_path, resident_path, serving_path) runs with every
-launch count set to 0 just before it and read just after,
+rebuild_path, verify_path, resident_path, serving_path, visibility_path)
+runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched. The last lines are the launch
 counts, the card's name and power limit, the per-kernel table, and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -203,6 +220,13 @@ VERIFY_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "ndc")
 SERVING_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "overflow")
 #: serving_path's submitter threads
 SERVING_THREADS = 8
+#: kernel_vis: rows of the columnar table (the view's capacity at 16M
+#: records), and visibility_path: bench.py's population size and seed
+VIS_ROWS = 1 << 24
+VIS_RECORDS = 1 << 20
+VIS_SEED = 20260804
+#: kernels J, K and L, which visibility_path must launch
+VISIBILITY_PATH_KERNELS = ("vis_mask", "vis_topk", "vis_apply")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1126,6 +1150,368 @@ def serving_path(args, corp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Device visibility: kernels J, K and L at the table's full width, then the
+# view behind Stores.visibility
+# ---------------------------------------------------------------------------
+
+#: the view's column names for the query fields (engine/visibility_device.py)
+_VIS_FIELDS = {"__domain__": "domain", "workflowtype": "workflow_type",
+               "closestatus": "close_status", "starttime": "start_time",
+               "closetime": "close_time"}
+
+
+class VisBinder:
+    """compile_plan's binder over kernel_vis's synthetic columns: a field to
+    its column, a string to its interned id, an int64 comparison through
+    plan_leaf_int, as the view's own binder does."""
+
+    def __init__(self, kinds, intern):
+        self.kinds, self.intern = kinds, intern
+
+    def leaf(self, field, op, value):
+        from cadence_tpu_torch.ops import scan as S
+
+        name = _VIS_FIELDS.get(field.lower(), field)
+        kind = self.kinds[name]
+        if kind == S.COL_I64:
+            code, p = S.plan_leaf_int(op, value)
+            return kind, code, name, p, 0.0
+        if kind == S.COL_ID:
+            return kind, S.OP_EQ if op == "=" else S.OP_NE, name, self.intern.get(value, -2), 0.0
+        code = {"=": S.OP_EQ, "!=": S.OP_NE, "<": S.OP_LT, "<=": S.OP_LE, ">": S.OP_GT,
+                ">=": S.OP_GE}[op]
+        return kind, code, name, 0, float(value)
+
+
+def vis_table(n: int, seed: int):
+    """({column: numpy array}, {column: kind}, intern table, valid): the
+    view's 7 builtin columns and its default budget of 16 attribute columns
+    (bench.py's Priority f64 and Tag id, F0-F6 f64, S0-S6 id) over n rows of
+    bench.py's population shape, 1% of the rows deleted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i = np.arange(n, dtype=np.int64)
+    base = 1_700_000_000_000_000_000
+    closed = rng.random(n) < 0.5
+    r = rng.random(n)
+    intern = {"bench": 0}
+    intern.update({f"wt-{k}": 1 + k for k in range(8)})
+    intern.update({f"tag-{k}": 9 + k for k in range(4)})
+    intern.update({f"s{k}": 20 + k for k in range(100)})
+    cols = {"domain": np.zeros(n, np.int64), "workflow_id": 200 + 2 * i,
+            "run_id": 201 + 2 * i, "workflow_type": 1 + i % 8,
+            "close_status": np.where(closed, rng.integers(0, 3, n), -1),
+            "start_time": base + i * 1000, "close_time": np.where(closed, base + i * 1000 + 7, 0),
+            "Priority": np.where(r < 0.5, rng.integers(0, 10, n).astype(np.float64), np.nan),
+            "Tag": np.where((r >= 0.5) & (r < 0.8), 9 + rng.integers(0, 4, n), -1)}
+    for k in range(7):
+        f = rng.normal(size=n)
+        f[rng.random(n) < 0.2] = np.nan
+        cols[f"F{k}"] = f
+        cols[f"S{k}"] = np.where(rng.random(n) < 0.2, -1, 20 + rng.integers(0, 100, n))
+    kinds = {name: ("f64" if a.dtype == np.float64 else "id") for name, a in cols.items()}
+    kinds.update(close_status="i64", start_time="i64", close_time="i64")
+    return cols, kinds, intern, rng.random(n) >= 0.01
+
+
+def vis_queries(n: int):
+    """bench.py's six selectivity queries (bench.py:757-765) at n rows, and
+    one and/or plan of 12 leaves over 12 columns."""
+    cut99 = 1_700_000_000_000_000_000 + int(n * 0.999) * 1000
+    return [("all", ""), ("half_open", "CloseStatus = -1"),
+            ("type_eighth", "WorkflowType = 'wt-3'"), ("attr_tenth", "Priority >= 9"),
+            ("narrow_and", "WorkflowType = 'wt-1' AND CloseStatus = 0 AND Priority < 2"),
+            ("time_tail", f"StartTime > {cut99}"),
+            ("and_or_12", "(F0 > 0.5 AND S0 = 's3') OR (F1 < -1 AND S1 != 's7') OR "
+                          "(F2 >= 0 AND S2 = 's1' AND F3 <= 1) OR (S3 = 's9' AND F4 != 0.25) "
+                          "OR (F5 > 2 AND CloseTime > 0) OR S4 = 's2'")]
+
+
+def kernel_vis(args, dev, records):
+    """Kernels J, K and L against their plain versions (exactly) on the
+    columnar table at args.vis_rows rows, each launch timed between CUDA
+    events beside its bound."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.engine.visibility_query import And, Cmp, parse_query
+    from cadence_tpu_torch.ops import _build, scan as S
+
+    launch = lambda run: run()  # noqa: E731
+    n = args.vis_rows
+    t0 = time.perf_counter()
+    host, kinds, intern, valid_np = vis_table(n, VIS_SEED)
+    cols = {name: torch.from_numpy(a).to(dev) for name, a in host.items()}
+    valid = torch.from_numpy(valid_np).to(dev)
+    del host
+    table_bytes = sum(c.numel() * c.element_size() for c in cols.values()) + n
+    t_table = time.perf_counter() - t0
+    binder = VisBinder(kinds, intern)
+    plans = {}
+    for name, q in vis_queries(n):
+        node, _ = parse_query(q)
+        scoped = Cmp("__domain__", "=", "bench")
+        plans[name] = S.compile_plan(And(scoped, node) if node is not None else scoped, binder)
+    start = cols["start_time"]
+    out = {}
+    err = {"J": 0, "K": 0, "L": 0}  # values that differ from the plain version
+    for name, plan in plans.items():
+        pc = [cols[s] for s in plan.slots]
+        want = S.scan_count_plain(plan, pc, valid)
+        got = S.scan_count(plan, pc, valid)
+        bits, c_b = S.scan_bitmap(plan, pc, valid)
+        want_bits, _ = S.scan_bitmap_plain(plan, pc, valid)
+        err["J"] = max(err["J"], abs(int(got) - int(want)), max_abs_err(bits, want_bits))
+        if int(got) != int(want) or int(c_b) != int(want) or not torch.equal(bits, want_bits):
+            fail(f"kernel_vis {name}: kernel J differs from its plain version "
+                 f"({int(got)}, {int(c_b)} against {int(want)})")
+        rec = {"leaves": len(plan.leaves), "columns": len(plan.slots), "count": int(want),
+               "j_count_ms": cuda_ms(launch, setup=lambda: S.scan_count_launch(plan, pc, valid)[0],
+                                     inner=5),
+               "j_bitmap_ms": cuda_ms(launch, setup=lambda: S.scan_bitmap_launch(plan, pc,
+                                                                                 valid)[0],
+                                      inner=5)}
+        col_bytes = n * (8 * len(plan.slots) + 1)
+        rec["j_count_bound_ms"] = col_bytes / HBM_BYTES_PER_S * 1e3
+        rec["j_bitmap_bound_ms"] = (col_bytes + n // 8) / HBM_BYTES_PER_S * 1e3
+        mask = S.mask_plain(plan, pc, valid)
+        for k in (128, 4096):
+            ids, c_k = S.scan_topk(plan, k, pc, valid, start)
+            want_ids = S.topk_order_plain(mask, start)[:k]
+            err["K"] = max(err["K"], int((ids != want_ids).sum()))
+            if not torch.equal(ids, want_ids) or int(c_k) != int(want):
+                fail(f"kernel_vis {name}: kernel K at k={k} differs from its plain version")
+            rec[f"k{k}_ms"] = cuda_ms(launch, setup=lambda: S.scan_topk_launch(
+                plan, k, pc, valid, start)[0], warm=k == 128)
+            k_cols = len(set(plan.slots) | {"start_time"})
+            rec[f"k{k}_bound_ms"] = (n * (8 * k_cols + 1) + 8 * k) / HBM_BYTES_PER_S * 1e3
+        out[name] = rec
+        del mask
+    # the records: J's count and K's k = 128 on narrow_and and half_open
+    # (bench.py's selective Count and the page walk's shape), each with its
+    # plain version's time and, for K, the yardstick torch.sort of its keys
+    jp = plans["narrow_and"]
+    jc = [cols[s] for s in jp.slots]
+    ms_jp = cuda_ms(lambda _: S.scan_count_plain(jp, jc, valid), PLAIN_REPS)
+    kp = plans["half_open"]
+    kc = [cols[s] for s in kp.slots]
+    ms_kp = cuda_ms(lambda _: S.scan_topk_plain(kp, 128, kc, valid, start), PLAIN_REPS)
+    neg = torch.where(start == -(1 << 63), start, -start.clamp(min=-(1 << 63) + 1))
+    ms_sort = cuda_ms(lambda _: torch.sort(neg, stable=True))
+    del neg
+    records.append(kernel_record(
+        "vis_mask", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:260", None, err["J"],
+        out["narrow_and"]["j_count_ms"], ms_jp, n * (8 * len(jp.slots) + 1),
+        n * 12 * len(jp.leaves), also_replaces=["cadence_tpu/ops/scan.py:273"], rows=n,
+        query="narrow_and", ptxas=ptxas_usage(_build.build_log, "vis_mask_kernel")))
+    k_cols = len(set(kp.slots) | {"start_time"})
+    records.append(kernel_record(
+        "vis_topk", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:288", None, err["K"],
+        out["half_open"]["k128_ms"], ms_kp, n * (8 * k_cols + 1) + 8 * 128, 0, rows=n, k=128,
+        query="half_open", yardstick="torch.sort(stable) of the int64 -start keys",
+        yardstick_ms=ms_sort))
+    # L: delta batches of 512 and 65,536 rows, with pads (index N) and one
+    # negative index, into all 23 columns and valid, against the plain
+    # version on a copy of the table
+    g = np.random.default_rng(VIS_SEED + 1)
+    names = list(cols)
+    targets = [cols[nm] for nm in names] + [valid]
+    copies = [t.clone() for t in targets]
+    apply = {}
+    for b in (512, 65536):
+        kept = b - b // 16
+        rows = g.choice(n, kept, replace=False).astype(np.int64)
+        rows[0] -= n  # the same row, written as a negative index
+        idx_np = np.full(b, n, np.int64)
+        idx_np[:kept] = rows
+        idx = torch.from_numpy(idx_np).to(dev)
+        vals = [torch.from_numpy(g.random(b) if t.dtype == torch.float64
+                                 else g.random(b) < 0.5 if t.dtype == torch.bool
+                                 else g.integers(-5, 100, b)).to(dev, t.dtype)
+                for t in targets]
+        S.scan_apply(targets, idx, vals)
+        S.scan_apply_plain(copies, idx, vals)
+        bad = sum(int((t.view(torch.uint8) != c.view(torch.uint8)).sum())
+                  for t, c in zip(targets, copies))
+        err["L"] = max(err["L"], bad)
+        if bad:
+            fail(f"kernel_vis: kernel L at B={b} differs from its plain version in {bad} bytes")
+        wrapped = torch.where(idx < 0, idx + n, idx)
+        keep = wrapped < n
+        rows_t, vals_t = wrapped[keep], [v[keep] for v in vals]
+        elem = sum(t.element_size() for t in targets)
+        apply[b] = {"ms": cuda_ms(launch, setup=lambda: S.scan_apply_launch(targets, idx,
+                                                                            vals)[0], inner=20),
+                    "plain_ms": cuda_ms(lambda _: S.scan_apply_plain(copies, idx, vals)),
+                    "index_copy_ms": cuda_ms(lambda _: [c.index_copy_(0, rows_t, v) for c, v in
+                                                         zip(copies, vals_t)], inner=5),
+                    "bound_ms": (b * 8 + 2 * kept * elem) / HBM_BYTES_PER_S * 1e3}
+    a = apply[65536]
+    records.append(kernel_record(
+        "vis_apply", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:310", None, err["L"],
+        a["ms"], a["plain_ms"], 65536 * 8 + 2 * (65536 - 4096) * sum(
+            t.element_size() for t in targets), 0, rows=65536, columns=len(targets),
+        yardstick="index_copy_ of each column", yardstick_ms=a["index_copy_ms"]))
+    emit("kernel_vis", rows=n, columns=len(targets), table_bytes=table_bytes,
+         table_seconds=t_table, queries=out, apply=apply, max_abs_err=err)
+    del cols, valid, targets, copies, start
+    torch.cuda.empty_cache()
+
+
+def visibility_path(args):
+    """The port's Stores.visibility with CADENCE_TPU_VISIBILITY=1 on the
+    card: bench.py's population (bench.py:735-754) and a `ties` domain,
+    queries with parity on, then timed with it off beside the host, then
+    a write burst. Returns the launch counts of the run."""
+    import random as pyrandom
+
+    import torch
+
+    from cadence_tpu_torch.engine.persistence import Stores, VisibilityRecord
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.utils import metrics as M
+
+    n = args.vis_records
+    knobs = {"CADENCE_TPU_VISIBILITY": "1", "CADENCE_TPU_VISIBILITY_PARITY": "1",
+             "CADENCE_TPU_VISIBILITY_CAPACITY": str(n)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        t0 = time.perf_counter()
+        vis = Stores().visibility
+        rng = pyrandom.Random(VIS_SEED)
+        base = 1_700_000_000_000_000_000
+        for i in range(n):
+            attrs = {}
+            r = rng.random()
+            if r < 0.5:
+                attrs["Priority"] = rng.randrange(0, 10)
+            elif r < 0.8:
+                attrs["Tag"] = f"tag-{rng.randrange(4)}"
+            vis.record_started(VisibilityRecord("bench", f"wf-{i}", f"r-{i}", f"wt-{i % 8}",
+                                                base + i * 1000, search_attrs=attrs))
+            if rng.random() < 0.5:
+                vis.record_closed("bench", f"wf-{i}", f"r-{i}", base + i * 1000 + 7,
+                                  rng.randrange(0, 3))
+        ties = [(f"tie-{i:04d}", f"tr-{i:04d}") for i in range(4096)]
+        for i, (wf, run) in enumerate(ties):
+            vis.record_started(VisibilityRecord("ties", wf, run, "tie", base + (i % 16) * 1000))
+        t_populate = time.perf_counter() - t0
+        M.DEFAULT_REGISTRY.reset()
+        reg, sc = M.DEFAULT_REGISTRY, M.SCOPE_TPU_VISIBILITY
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t_start = time.perf_counter()
+        os.environ["CADENCE_TPU_VISIBILITY_PARITY"] = "0"
+        vis.count("bench", "")  # the first routed query bootstraps the view
+        t_bootstrap = time.perf_counter() - t_start
+        os.environ["CADENCE_TPU_VISIBILITY_PARITY"] = "1"
+        queries = vis_queries(n)[:6]
+        sel = {}
+        for name, q in queries:  # parity on: every answer re-checked on the host
+            c = vis.count("bench", q)
+            if len(vis.query("bench", q)) != c:
+                fail(f"visibility_path {name}: list and count disagree")
+            sel[name] = c
+        walk, token = [], None
+        while True:
+            page, token = vis.query_page("ties", "", 100, token)
+            walk += [(r.workflow_id, r.run_id) for r in page]
+            if token is None:
+                break
+        fb = reg.counter(sc, M.M_VIS_FALLBACK_PREDICATE)
+        vis.count("bench", "WorkflowType > 'wt-3'")
+        if reg.counter(sc, M.M_VIS_FALLBACK_PREDICATE) != fb + 1:
+            fail("visibility_path: string ordering did not count as fallback-predicate")
+        # parity off: the device path alone, timed, then the host's count
+        os.environ["CADENCE_TPU_VISIBILITY_PARITY"] = "0"
+        timed = {}
+        for name, q in queries:
+            runs = []
+            for _ in range(REPS):
+                t1 = time.perf_counter()
+                c = vis.count("bench", q)
+                runs.append(time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            listed = len(vis.query("bench", q))
+            timed[name] = {"count": c, "device_count_ms": statistics.median(runs) * 1e3,
+                           "device_list_ms": (time.perf_counter() - t1) * 1e3}
+        os.environ["CADENCE_TPU_VISIBILITY"] = "0"
+        for name, q in queries:
+            t1 = time.perf_counter()
+            c = vis.count("bench", q)
+            timed[name]["host_count_ms"] = (time.perf_counter() - t1) * 1e3
+            if c != timed[name]["count"] or c != sel[name]:
+                fail(f"visibility_path {name}: host count {c}, device {timed[name]['count']}")
+        host_walk, token = [], None
+        while True:
+            page, token = vis.query_page("ties", "", 100, token)
+            host_walk += [(r.workflow_id, r.run_id) for r in page]
+            if token is None:
+                break
+        if walk != host_walk or len(walk) != len(ties):
+            fail("visibility_path: the ties page walk differs from the host's")
+        os.environ["CADENCE_TPU_VISIBILITY"] = "1"
+        os.environ["CADENCE_TPU_VISIBILITY_PARITY"] = "1"
+        # the write burst, each write followed by a count (parity on)
+        t1 = time.perf_counter()
+        for i, (wf, run) in enumerate(ties):
+            vis.record_closed("ties", wf, run, base + 10 ** 9, i % 3)
+            if vis.count("ties", "CloseStatus = -1") != len(ties) - i - 1:
+                fail("visibility_path: a close was not read back")
+        t_close = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        t_restage = None
+        for i, (wf, run) in enumerate(ties[:1024]):
+            vis.upsert_search_attributes("ties", wf, run, {"Burst": i})
+            if vis.count("ties", "Burst >= 0") != i + 1:
+                fail("visibility_path: an upsert was not read back")
+            if t_restage is None:
+                t_restage = time.perf_counter() - t1  # the new column's restage
+        t_upsert = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for i, (wf, run) in enumerate(ties[:512]):
+            vis.delete_record("ties", wf, run)
+            if vis.count("ties", "") != len(ties) - i - 1:
+                fail("visibility_path: a delete was not read back")
+        t_delete = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t_start
+        launches = dict(_build.launches)
+        view = vis._device
+        stats = view.stats()
+        view.stop()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if stats["parity_divergence"] or stats["quarantined"]:
+        fail(f"visibility_path: {stats['parity_divergence']} parity divergences")
+    if not stats["device_served"] or not stats["topk_escalations"]:
+        fail(f"visibility_path: device_served {stats['device_served']}, topk_escalations "
+             f"{stats['topk_escalations']}")
+    check_launches(launches, "visibility_path", VISIBILITY_PATH_KERNELS)
+    records = n + len(ties)
+    dev_s = sum(t["device_count_ms"] for t in timed.values()) / 1e3
+    host_s = sum(t["host_count_ms"] for t in timed.values()) / 1e3
+    emit("visibility_path", records=records, capacity=stats["capacity"],
+         populate_seconds=t_populate, bootstrap_seconds=t_bootstrap,
+         restage_seconds=t_restage, selectivity={k: v / n for k, v in sel.items()},
+         timed=timed, device_rows_per_s=records * len(queries) / dev_s,
+         host_rows_per_s=records * len(queries) / host_s, page_walk_pages=-(-len(ties) // 100),
+         burst_seconds={"record_closed": t_close, "upsert": t_upsert, "delete": t_delete},
+         writes=len(ties) + 1024 + 512, seconds=t_path,
+         parity_divergence=stats["parity_divergence"], device_served=stats["device_served"],
+         host_fallbacks=stats["host_fallbacks"], topk_escalations=stats["topk_escalations"],
+         parity_checks=stats["parity_checks"], deltas_applied=stats["deltas_applied"],
+         drains=stats["drains"], launches=launches)
+    return launches
+
+
 def gen_ops(W: int, E: int) -> int:
     """Integer operations of generating W x E events (GEN_OPS_PER_EVENT)."""
     return W * E * GEN_OPS_PER_EVENT
@@ -1444,6 +1830,8 @@ def main() -> int:
     args.ns_events = NS_EVENTS if full else 200
     args.ns_chunks = NS_CHUNKS
     args.gen_plain_w = 4096
+    args.vis_rows = VIS_ROWS if full else 1 << 16
+    args.vis_records = VIS_RECORDS if full else 16384
 
     import torch
 
@@ -2127,13 +2515,19 @@ def main() -> int:
     # --- 9. serving_path: the serving scheduler under eight submitter threads
     serving_launches = serving_path(args, corp)
 
+    # --- 10. kernel_vis: kernels J, K and L on the columnar table
+    kernel_vis(args, dev, records)
+
+    # --- 11. visibility_path: Stores.visibility served from the card
+    visibility_launches = visibility_path(args)
+
     # --- the summary lines
     paths = {"main_path": main_launches, "wirec_path": wirec_launches,
              "feeder_path": feeder_launches, "north_star": ns_launches,
              "north_star_parity": parity_launches, "host_generator": host_gen_launches,
              "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches,
              "verify_path": verify_launches, "resident_path": resident_launches,
-             "serving_path": serving_launches}
+             "serving_path": serving_launches, "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
     print(json.dumps({"launches": paths}))

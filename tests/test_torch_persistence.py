@@ -3,7 +3,8 @@ reads (engine/persistence.py Stores, engine/cache.py, engine/crashpoints.py,
 engine/membership.py) and the host half of engine/snapshot.py, beside the
 JAX package's: the same writes give the same answers, pack_state_row gives
 the JAX package's bytes for the same state and unpack_state_row rebuilds
-it, and the device visibility twin's knob raises in the port."""
+it. The device visibility twin is held to the JAX package's in
+tests/test_torch_visibility_device.py."""
 import zlib
 
 import jax
@@ -180,20 +181,6 @@ def test_validate_record_as_jax(both):
     assert reg.counter(m.SCOPE_TPU_SNAPSHOT, m.M_SNAP_IGNORED_STALE) == 1
     assert reg.counter(m.SCOPE_TPU_SNAPSHOT, m.M_SNAP_IGNORED_TORN) == 1
     assert tsnap.layout_signature(DEFAULT_LAYOUT) == jsnap.layout_signature(DEFAULT_LAYOUT)
-
-
-@pytest.mark.parametrize("knob", ["1", "on", "yes"])
-def test_visibility_twin_knob_raises(monkeypatch, knob):
-    from cadence_tpu_torch.engine.persistence import Stores
-
-    stores = Stores()
-    stores.visibility.record_started(VisibilityRecord("d", "w", "r", "t", 5))
-    monkeypatch.setenv("CADENCE_TPU_VISIBILITY", knob)
-    for call in (lambda: stores.visibility.query("d", ""),
-                 lambda: stores.visibility.count("d"),
-                 lambda: stores.visibility.query_page("d", "", 10)):
-        with pytest.raises(NotImplementedError, match="device visibility"):
-            call()
 
 
 @pytest.mark.parametrize("knob", [None, "", "0", "off"])

@@ -1,0 +1,290 @@
+"""The port's ops/scan.py against the JAX package's: the host half
+(plan_leaf_int, compile_plan) and the plain versions of kernels J, K and
+L (scan_count, scan_bitmap, scan_topk, scan_apply on the CPU) against
+build_count, build_bitmap, build_topk and build_apply, on columns made
+from seeds with numpy that hold NULL_ID, NaN, -0.0, +-inf, INT64_MIN and
+INT64_MAX. Every output is an integer, a bool or a copied float:
+compared exactly."""
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cadence_tpu.engine import visibility_device as jvd
+from cadence_tpu.engine.persistence import VisibilityRecord as JRecord
+from cadence_tpu.engine.visibility_query import parse_query as jparse
+from cadence_tpu.ops import scan as js
+from cadence_tpu_torch.engine import visibility_device as tvd
+from cadence_tpu_torch.engine.persistence import VisibilityRecord as TRecord
+from cadence_tpu_torch.engine.visibility_query import parse_query as tparse
+from cadence_tpu_torch.ops import scan as ts
+
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+OPS = ("=", "!=", "<", "<=", ">", ">=")
+N = 256
+
+LEAF_VALUES = [0, 5, -7, I64_MIN, I64_MAX, I64_MAX + 1, I64_MIN - 1, 1 << 70, -(1 << 70),
+               5.0, -0.0, 2.5, -2.5, 1e300, -1e300, 9.3e18, -9.3e18, 9.2233720368547758e18,
+               float("inf"), float("-inf"), float("nan"), "s", True, None]
+
+
+@pytest.mark.parametrize("value", LEAF_VALUES, ids=repr)
+def test_plan_leaf_int_as_jax(value):
+    for op in OPS:
+        assert ts.plan_leaf_int(op, value) == js.plan_leaf_int(op, value), (op, value)
+
+
+def test_codes_as_jax():
+    names = [n for n in dir(js) if n.startswith(("OP_", "COL_"))] + ["NULL_ID"]
+    assert {n: getattr(ts, n) for n in names} == {n: getattr(js, n) for n in names}
+    for n in (1, 63, 64, 65, 1000, 4097):
+        assert ts.pow2_bucket(n) == js.pow2_bucket(n)
+        assert ts.pow2_bucket(n, floor=8) == js.pow2_bucket(n, floor=8)
+
+
+# --- compile_plan on random ASTs through both views' binders ----------------
+
+_FIELDS = ("WorkflowID", "WorkflowType", "RunID", "CloseStatus", "StartTime", "CloseTime",
+           "Num", "Str", "Absent")
+
+
+def _rand_value(rng, field):
+    r = rng.random()
+    if field == "WorkflowType" and r < 0.5:
+        return f"'type-{rng.randrange(6)}'"
+    if field == "Str" and r < 0.6:
+        return f"'v{rng.randrange(8)}'"
+    if r < 0.2:
+        return f"'s{rng.randrange(4)}'"
+    if r < 0.5:
+        return str(round(rng.uniform(-3, 12), 2))
+    if r < 0.6:
+        return str(rng.choice([2 ** 62, -(2 ** 62), 10 ** 20, 2 ** 53 + 1]))
+    return str(rng.randrange(-5, 15))
+
+
+def _rand_query(rng, depth=3):
+    if depth <= 0 or rng.random() < 0.4:
+        field = rng.choice(_FIELDS)
+        op = rng.choice(OPS) if field not in ("WorkflowID", "RunID", "WorkflowType") \
+            else rng.choice(("=", "!="))
+        return f"{field} {op} {_rand_value(rng, field)}"
+    q = f"{_rand_query(rng, depth - 1)} {rng.choice(('AND', 'OR'))} {_rand_query(rng, depth - 1)}"
+    return f"({q})" if rng.random() < 0.4 else q
+
+
+def _views(rng, n=40):
+    """A JAX view and a port view (on the CPU) whose host mirrors hold the
+    same n records; only their binders are used."""
+    jv, tv = jvd.DeviceVisibilityView(), tvd.DeviceVisibilityView(device="cpu")
+    for i in range(n):
+        attrs = {}
+        if rng.random() < 0.6:
+            attrs["Num"] = rng.randrange(-5, 15)
+        if rng.random() < 0.6:
+            attrs["Str"] = f"v{rng.randrange(6)}"
+        fields = ("d", f"wf-{i}", f"r-{i}", f"type-{rng.randrange(5)}", rng.randrange(50))
+        for view, rec_cls in ((jv, JRecord), (tv, TRecord)):
+            rec = rec_cls(*fields, search_attrs=dict(attrs))
+            view._apply_upsert((i + 1, "up", (rec.domain_id, rec.workflow_id, rec.run_id),
+                                rec.workflow_type, int(rec.close_status),
+                                int(rec.start_time), int(rec.close_time),
+                                dict(rec.search_attrs)))
+    return jv, tv
+
+
+@pytest.mark.parametrize("seed", [3, 17])
+def test_compile_plan_as_jax(seed):
+    rng = random.Random(seed)
+    jv, tv = _views(rng)
+    compiled = 0
+    for _ in range(60):
+        q = _rand_query(rng)
+        try:
+            jparse(q)
+        except Exception:  # an unknown CloseStatus name: neither parser takes it
+            with pytest.raises(Exception):
+                tparse(q)
+            continue
+        outcome = []
+        for view, scan, parse in ((jv, js, jparse), (tv, ts, tparse)):
+            try:
+                node, _ = parse(q)
+                plan = scan.compile_plan(view._scoped(node, "d"), view._binder())
+                outcome.append((plan.signature, plan.iparams.tolist(), plan.fparams.tobytes()))
+            except scan.UnsupportedPredicate as exc:
+                outcome.append(("unsupported", exc.reason))
+        assert outcome[0] == outcome[1], q
+        compiled += outcome[1][0] != "unsupported"
+    assert compiled >= 30
+
+
+def test_deep_nesting_keeps_the_stack_shallow():
+    """A right-deep chain of 200 parenthesised leaves needs a stack of 201
+    in plain postfix order; the program runs the deeper child first, so it
+    needs 2, and counts as the JAX package's tree does."""
+    q = "StartTime > 0"
+    for i in range(1, 200):
+        q = f"StartTime > {i} {'AND' if i % 2 else 'OR'} ({q})"
+    rng = random.Random(1)
+    jv, tv = _views(rng)
+    plan = ts.compile_plan(tparse(q)[0], tv._binder())
+    words, depth = ts.program(plan)
+    assert len(words) == 399 and depth == 2
+    cols, valid = _columns(np.random.default_rng(1), plan.slots, {s: "i64" for s in plan.slots})
+    jplan = js.compile_plan(jparse(q)[0], jv._binder())
+    assert jplan.signature == plan.signature
+    want = js.build_count(jplan)(tuple(jnp.asarray(c) for c in cols), jnp.asarray(valid),
+                                 jnp.asarray(jplan.iparams), jnp.asarray(jplan.fparams))
+    got = ts.scan_count(plan, [torch.from_numpy(c) for c in cols], torch.from_numpy(valid))
+    assert int(got) == int(want)
+
+
+def test_program_past_the_stack_is_unsupported(monkeypatch):
+    plan = ts.ScanPlan(("and", 0, ("or", 1, 2)), ((ts.COL_I64, ts.OP_GT, 0),) * 3, ("c",),
+                       np.zeros(3, np.int64), np.zeros(3))
+    assert ts.program(plan)[1] == 2
+    monkeypatch.setattr(ts, "MAX_STACK", 1)
+    with pytest.raises(ts.UnsupportedPredicate) as exc:
+        ts.program(plan)
+    assert exc.value.reason == "predicate"
+
+
+# --- the plain versions of kernels J, K and L against build_* ---------------
+
+def _columns(rng, slots, kinds, n=N):
+    """One column per slot (int64 ids with NULL_ID, int64 with the int64
+    edges, or float64 with NaN, -0.0 and +-inf) and a valid mask."""
+    cols = []
+    for s in slots:
+        kind = kinds[s]
+        if kind == "f64":
+            c = rng.choice([0.0, -0.0, 1.5, -2.0, 3.0, 7.25, np.nan, np.inf, -np.inf, 1e300], n)
+        elif kind == "id":
+            c = rng.choice([-1, 0, 1, 2, 3, 4], n).astype(np.int64)
+        else:
+            c = rng.choice(np.array([I64_MIN, I64_MAX, I64_MIN + 1, -1, 0, 1, 5, 7, 1000],
+                                    dtype=np.int64), n)
+        cols.append(np.ascontiguousarray(c))
+    return cols, rng.random(n) < 0.8
+
+
+_KIND_OPS = {"id": (js.OP_EQ, js.OP_NE, js.OP_PRESENT),
+             "i64": (js.OP_EQ, js.OP_NE, js.OP_LT, js.OP_LE, js.OP_GT, js.OP_GE),
+             "f64": (js.OP_EQ, js.OP_NE, js.OP_LT, js.OP_LE, js.OP_GT, js.OP_GE, js.OP_PRESENT)}
+_PARAMS = {"id": [-1, 0, 2, 4, 9], "i64": [I64_MIN, I64_MAX, -1, 0, 5, 1000],
+           "f64": [0.0, -0.0, 1.5, 3.0, np.inf, -np.inf, np.nan, 7.25]}
+
+
+def _rand_plan(rng, n_cols=4, n_leaves=6):
+    """A random plan over n_cols columns of random kinds: constant leaves,
+    every op of each kind, and/or trees of random shape."""
+    kinds = {f"c{i}": str(rng.choice(["id", "i64", "f64"])) for i in range(n_cols)}
+    slots = tuple(kinds)
+    leaves, ip, fp = [], [], []
+    for _ in range(n_leaves):
+        slot = int(rng.integers(n_cols))
+        kind = kinds[slots[slot]]
+        op = int(rng.choice(_KIND_OPS[kind])) if rng.random() > 0.15 \
+            else int(rng.choice([js.OP_FALSE, js.OP_TRUE]))
+        leaves.append((kind, op, slot))
+        p = rng.choice(_PARAMS[kind])
+        ip.append(int(p) if kind != "f64" else 0)
+        fp.append(float(p) if kind == "f64" else 0.0)
+    trees = list(range(n_leaves))
+    while len(trees) > 1:
+        i = int(rng.integers(len(trees) - 1))
+        trees[i:i + 2] = [(str(rng.choice(["and", "or"])), trees[i], trees[i + 1])]
+    args = (trees[0], tuple(leaves), slots, np.asarray(ip, np.int64), np.asarray(fp, np.float64))
+    return ts.ScanPlan(*args), js.ScanPlan(*args), kinds
+
+
+def _both(plan, jplan, kinds, rng, n=N):
+    cols, valid = _columns(rng, plan.slots, kinds, n)
+    start = rng.choice(np.array([I64_MIN, I64_MAX, -3, 0, 5, 6, 1 << 40], dtype=np.int64), n)
+    jargs = (tuple(jnp.asarray(c) for c in cols), jnp.asarray(valid))
+    targs = ([torch.from_numpy(c) for c in cols], torch.from_numpy(valid))
+    return jargs, targs, start
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_count_bitmap_topk_as_jax(seed):
+    rng = np.random.default_rng(seed)
+    plan, jplan, kinds = _rand_plan(rng, n_leaves=2 + seed)
+    (jcols, jvalid), (tcols, tvalid), start = _both(plan, jplan, kinds, rng)
+    ip, fp = jnp.asarray(jplan.iparams), jnp.asarray(jplan.fparams)
+    want = int(js.build_count(jplan)(jcols, jvalid, ip, fp))
+    got = ts.scan_count(plan, tcols, tvalid)
+    assert got.dtype == torch.int64 and int(got) == want
+    jbits, jc = js.build_bitmap(jplan)(jcols, jvalid, ip, fp)
+    bits, c = ts.scan_bitmap(plan, tcols, tvalid)
+    assert bits.dtype == torch.uint8 and np.array_equal(bits.numpy(), np.asarray(jbits))
+    assert int(c) == int(jc) == want
+    for k in (64, 128):
+        jids, jc = js.build_topk(jplan, k)(jcols, jvalid, jnp.asarray(start), ip, fp)
+        ids, c = ts.scan_topk(plan, k, tcols, tvalid, torch.from_numpy(start))
+        assert ids.dtype == torch.int64 and np.array_equal(ids.numpy(), np.asarray(jids)), k
+        assert int(c) == int(jc) == want
+
+
+@pytest.mark.parametrize("matches", [0, 5, 100])
+def test_topk_count_zero_and_below_k(matches):
+    """count = 0 and count < k: the tail holds non-matching rows in the
+    same (-start, row) order as the JAX package's."""
+    rng = np.random.default_rng(matches)
+    col = np.zeros(N, np.int64)
+    col[rng.choice(N, matches, replace=False)] = 1
+    start = rng.choice(np.array([I64_MIN, 3, 3, 9, -9], np.int64), N)
+    valid = np.ones(N, bool)
+    plan = ts.ScanPlan(0, ((ts.COL_I64, ts.OP_EQ, 0),), ("c",), np.ones(1, np.int64), np.zeros(1))
+    jplan = js.ScanPlan(0, ((js.COL_I64, js.OP_EQ, 0),), ("c",), np.ones(1, np.int64),
+                        np.zeros(1))
+    for k in (64, 128):
+        jids, jc = js.build_topk(jplan, k)((jnp.asarray(col),), jnp.asarray(valid),
+                                          jnp.asarray(start), jnp.asarray(jplan.iparams),
+                                          jnp.asarray(jplan.fparams))
+        ids, c = ts.scan_topk(plan, k, [torch.from_numpy(col)], torch.from_numpy(valid),
+                              torch.from_numpy(start))
+        assert np.array_equal(ids.numpy(), np.asarray(jids)) and int(c) == int(jc) == matches
+
+
+def test_topk_int64_min_sorts_first():
+    """-start wraps: a matching row with start INT64_MIN sorts first."""
+    start = torch.tensor([I64_MIN, 5, 0, -3], dtype=torch.int64)
+    mask = torch.tensor([True, True, False, True])
+    assert ts.topk_order_plain(mask, start).tolist() == [0, 1, 3, 2]
+    want = jnp.lexsort((jnp.arange(4), -jnp.asarray(start.numpy()), ~jnp.asarray(mask.numpy())))
+    assert np.asarray(want).tolist() == [0, 1, 3, 2]
+
+
+def test_apply_negative_index_wraps_once():
+    """.at[idx].set(mode="drop"): -1 writes row 7, 8 and -9 are dropped."""
+    col = torch.arange(8, dtype=torch.int64)
+    idx = torch.tensor([-1, 8, 2, -9], dtype=torch.int64)
+    ts.scan_apply([col], idx, [torch.tensor([70, 80, 20, 90], dtype=torch.int64)])
+    want = jnp.arange(8).at[jnp.asarray(idx.numpy())].set(jnp.asarray([70, 80, 20, 90]),
+                                                          mode="drop")
+    assert col.tolist() == np.asarray(want).tolist() == [0, 1, 20, 3, 4, 5, 6, 70]
+
+
+@pytest.mark.parametrize("bucket", [64, 128])
+def test_apply_as_jax(bucket):
+    """A padded delta batch (distinct rows, a few negative, pads = N) into
+    int64, float64 and bool columns, as build_apply writes it."""
+    rng = np.random.default_rng(bucket)
+    n_rows = bucket - 9
+    rows = rng.choice(N, n_rows, replace=False).astype(np.int64)
+    rows[:5] -= N  # the same rows, written as negative indices
+    idx = np.full(bucket, N, np.int64)
+    idx[:n_rows] = rows
+    cols = [rng.integers(-5, 5, N).astype(np.int64), rng.random(N), rng.random(N) < 0.5]
+    vals = [rng.integers(-5, 5, bucket).astype(np.int64),
+            rng.choice([np.nan, -0.0, np.inf, 2.5], bucket), rng.random(bucket) < 0.5]
+    want = js.build_apply(tuple(str(c.dtype) for c in cols))(
+        tuple(jnp.asarray(c) for c in cols), jnp.asarray(idx), tuple(jnp.asarray(v) for v in vals))
+    got = ts.scan_apply([torch.from_numpy(c.copy()) for c in cols], torch.from_numpy(idx),
+                        [torch.from_numpy(v) for v in vals])
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes()
