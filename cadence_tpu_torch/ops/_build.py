@@ -138,15 +138,17 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_gen_lanes.restype = I
     lib.cadence_gen_lanes.argtypes = [L, L, L, L, P, P]  # seed, first index, W, E, out, stream
     lib.cadence_replay_gen.restype = I
-    # state pointer table, seed, first index, W, E, K[5], B, Kv, stream
-    lib.cadence_replay_gen.argtypes = [P, L, L, L, L, P, I, I, P]
+    # state pointer table, seed, first index, W, E, K[5], B, Kv, threads a workflow, stream
+    lib.cadence_replay_gen.argtypes = [P, L, L, L, L, P, I, I, I, P]
     lib.cadence_vis_mask.restype = I
     # program table, columns, instructions, leaves, valid, N, count, bitmap (or null), stream
     lib.cadence_vis_mask.argtypes = [P, I, I, I, P, L, P, P, P]
     lib.cadence_vis_topk.restype = I
-    # program table, columns, instructions, leaves, valid, start, N, k, key and tag scratch,
-    # ids, count, stream
-    lib.cadence_vis_topk.argtypes = [P, I, I, I, P, P, L, L, P, P, P, P, P]
+    # program table, columns, instructions, leaves, valid, start, N, k, scratch, ids, count,
+    # stream
+    lib.cadence_vis_topk.argtypes = [P, I, I, I, P, P, L, L, P, P, P, P]
+    lib.cadence_vis_topk_scratch.restype = L
+    lib.cadence_vis_topk_scratch.argtypes = [L, L]  # N, k
     lib.cadence_vis_apply.restype = I
     # pointer table (columns, values, element sizes), C, idx, B, N, stream
     lib.cadence_vis_apply.argtypes = [P, I, P, L, L, P]

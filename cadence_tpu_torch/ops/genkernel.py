@@ -15,8 +15,8 @@ On the card:
 - `generate_lanes` is kernel I (csrc/genkernel.cu), which materialises the
   same lanes for samples and the oracle's cross-checks;
 - `generate_and_replay` and `generate_and_replay_crc` are kernel A's
-  generator reader (csrc/replay.cu, cadence_replay_gen), then kernel B,
-  and C for the CRC;
+  generator reader (csrc/replay_gen.cu, cadence_replay_gen), then kernel
+  B, and C for the CRC;
 - the sharded forms launch each shard on its own device of a
   parallel/mesh.Mesh and gather the results on its first device.
 On the CPU (`device="cpu"`) every entry point runs the plain version:
@@ -323,6 +323,52 @@ def gen_step(g: GenState, seed: int, first_index: int, step: int,
 
 
 # ---------------------------------------------------------------------------
+# Kernel A's generator reader: the draws made ahead of the stepping threads
+# ---------------------------------------------------------------------------
+
+#: csrc/replay_gen.cu: workflows (stepping threads) a block, and the steps
+#: of a tile whose draws the block makes before they are stepped
+GEN_WF, GEN_TILE = 32, 16
+
+#: genkernel.cuh pack_dice: each draw's (hash salt, modulus, added, low bit,
+#: bits) in the 56-bit word. ts_ms is die(r3, 5000) + 1, stored as it is
+#: used; the others are stored as die(r, n) and the step adds `added`.
+DICE_FIELDS = {
+    "ts_ms": (4, 5000, 1, 0, 13),
+    "die1": (1, 16, 0, 13, 4),
+    "die2": (2, 8, 0, 17, 3),
+    "sched_to_start": (3, 115, 5, 20, 7),
+    "sched_to_close": (3, 570, 30, 27, 10),
+    "timer_s": (3, 600, 1, 37, 10),
+    "start_to_close": (4, 290, 10, 47, 9),
+}
+
+
+def pack_dice_plain(seed: int, first_index: int, num_workflows: int, e0: int, steps: int,
+                    device="cpu") -> torch.Tensor:
+    """Plain version of one tile of kernel A's generator reader's draws:
+    [steps, W] int64 words, word [s, i] the packed draws of workflow
+    first_index + i at scan step e0 + s (step-major, as the block lays them
+    out in shared memory)."""
+    w = _indices(num_workflows, first_index, resolve_device(device))
+    out = torch.empty((steps, num_workflows), dtype=I64, device=w.device)
+    for s in range(steps):
+        r = {salt: _mix(seed, w, e0 + s, salt) for salt in (1, 2, 3, 4)}
+        word = torch.zeros_like(w)
+        for name, (salt, n, added, lo, _bits) in DICE_FIELDS.items():
+            word |= (_die(r[salt], n) + (added if name == "ts_ms" else 0)) << lo
+        out[s] = word
+    return out
+
+
+def unpack_dice(words: torch.Tensor) -> dict:
+    """The values a step takes from packed words (PackedDice): ts_ms,
+    die1 and die2 as stored, the attribute draws with their offsets."""
+    return {name: ((words >> lo) & ((1 << bits) - 1)) + (0 if name == "ts_ms" else added)
+            for name, (_salt, _n, added, lo, bits) in DICE_FIELDS.items()}
+
+
+# ---------------------------------------------------------------------------
 # Kernel I: the lanes materialised
 # ---------------------------------------------------------------------------
 
@@ -395,15 +441,24 @@ def gen_scan(s: ReplayState, seed: int, first_index: int, total_events: int) -> 
     return s
 
 
+#: the largest activity, timer and child capacity kernel A's generator
+#: reader takes (each table's occupancy is one 64-bit mask in registers)
+GEN_MAX_SLOTS = 64
+
+
 def gen_launch(s: ReplayState, seed: int, first_index: int, total_events: int):
     """Check what kernel A's generator reader takes and return its launch,
     a call that runs it on `s` in place (see _build.launcher)."""
     lay = layout_of(s)
     W = s.state.shape[0]
+    if max(lay.max_activities, lay.max_timers, lay.max_children) > GEN_MAX_SLOTS:
+        raise ValueError(f"generate_and_replay: kernel A's generator reader takes at most "
+                         f"{GEN_MAX_SLOTS} activity, timer and child slots, not {lay}")
     return _build.launcher(
         "replay_gen", _build.load().cadence_replay_gen, _build.state_pointer_table(s),
         _wrap(seed), first_index, W, total_events, _build.caps(lay), lay.max_branches,
-        lay.max_version_history_items, _build.stream_of(s.state))
+        lay.max_version_history_items, 0,  # threads a workflow: the launch chooses
+        _build.stream_of(s.state))
 
 
 def generate_and_replay_state(seed: int, first_index: int, num_workflows: int,

@@ -18,7 +18,8 @@ The device half on the card (csrc/scan.cu):
   1 bit a row in numpy's big bit order;
 - `scan_topk` is kernel K (`cadence_vis_topk`): the first k row ids in
   (matching first, start time descending, row ascending) order, and the
-  count;
+  count, by a radix select of the k-th row and a sort of the few rows at
+  or before it (`topk_select_plain` states its stages in plain torch);
 - `scan_apply` is kernel L (`cadence_vis_apply`): one delta batch
   scattered into every column, pads and out-of-range indices dropped.
 
@@ -333,6 +334,102 @@ def topk_order_plain(mask: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     return order[torch.sort((~mask[order]).to(torch.uint8), stable=True).indices]
 
 
+# Kernel K's select route (csrc/scan.cu): the constants it is built with.
+#: composite bits one histogram pass fixes
+TOPK_DIGIT = 12
+#: the boundary bucket the passes may leave
+TOPK_CAP = 4096
+#: candidates the sort takes; above TOPK_SELECT_MAX, k takes the full sort
+TOPK_SORT_MAX = 16384
+TOPK_SELECT_MAX = TOPK_SORT_MAX - TOPK_CAP
+_SIGN = 1 << 63
+_U64 = (1 << 64) - 1
+
+
+def topk_route(n: int, k: int) -> str:
+    """Which route kernel K takes for k of n rows: "select" (a radix select
+    of the k-th row, then a sort of at most k - 1 + TOPK_CAP candidates) or
+    "sort" (a bitonic sort of all n rows, n a power of two)."""
+    return "select" if k <= TOPK_SELECT_MAX else "sort"
+
+
+def _composite_digit(ukey: torch.Tensor, row: torch.Tensor, lo: int, d: int) -> torch.Tensor:
+    """Bits [lo, lo + d) of ukey << 32 | row, ukey's uint64 bits held in an
+    int64 tensor (the masked low bits of an arithmetic shift are a logical
+    shift's)."""
+    v = (ukey >> (lo - 32)) if lo >= 32 else (ukey << (32 - lo)) | (row >> lo)
+    return v & ((1 << d) - 1)
+
+
+def _s64(u: int) -> int:
+    """The int64 holding uint64 bits u."""
+    return u - (1 << 64) if u >= _SIGN else u
+
+
+def topk_select_plain(mask: torch.Tensor, start: torch.Tensor, k: int, digit: int = TOPK_DIGIT,
+                      cap: int = TOPK_CAP) -> torch.Tensor:
+    """Kernel K's select route, stage by stage, in plain torch: the first k
+    row ids of topk_order_plain. The composite (!mask, key, row) orders the
+    rows, key = (uint64)(-start) ^ sign bit. The k-th row lies in one part
+    (the matches when k <= count, else the rest); from the first composite
+    bit that differs inside that part, each pass histograms the next
+    `digit` bits over the part's rows that share the prefix fixed so far
+    and fixes the digit of the bucket that holds the k-th rank, until that
+    bucket holds at most `cap` rows. The candidates (that part's rows at
+    or below the bucket, and every match when the part is the rest) are
+    sorted and the first k kept."""
+    n = mask.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=mask.device)
+    # pass 1: the keys (uint64 bits in int64), the count, each part's range
+    ukey = (-start) ^ _INT64_MIN  # -start wraps, as (0 - (uint64)start) does
+    skey = -start                # the same order as signed int64
+    count = int(mask.sum())
+    part = 0 if k <= count else 1
+    need = k if part == 0 else k - count
+    in_part = mask if part == 0 else ~mask
+    lo_k = (int(skey[in_part].min()) ^ _SIGN) & _U64  # least key, uint64
+    hi_k = (int(skey[in_part].max()) ^ _SIGN) & _U64
+    if lo_k != hi_k:
+        hb = (lo_k ^ hi_k).bit_length()
+        pos, pk = 32 + hb, lo_k & ~((1 << hb) - 1) & _U64
+    else:
+        pos, pk = (n - 1).bit_length(), lo_k
+    pr = 0
+    done = int(in_part.sum()) <= cap or pos == 0
+    # pass 2: the digit histograms
+    while not done:
+        d = min(digit, pos)
+        lo = pos - d
+        hi_bits = pos - 32
+        if pos >= 96:
+            inb = in_part
+        elif pos >= 32:
+            inb = in_part & ((ukey >> hi_bits) == (_s64(pk) >> hi_bits))
+        else:
+            inb = in_part & (ukey == _s64(pk)) & ((rows >> pos) == (pr >> pos))
+        hist = torch.bincount(_composite_digit(ukey[inb], rows[inb], lo, d), minlength=1 << d)
+        cum = torch.cumsum(hist, 0)
+        b = int(torch.searchsorted(cum, torch.tensor(need)))
+        need -= int(cum[b - 1]) if b else 0
+        if lo >= 32:
+            pk |= b << (lo - 32)
+        else:
+            pr |= (b << lo) & 0xFFFFFFFF
+            pk |= b >> (32 - lo)
+        pos = lo
+        done = int(hist[b]) <= cap or pos == 0
+    # pass 3: the candidates, at most k - 1 + cap of them
+    hk = pk | ((1 << (pos - 32)) - 1) if pos > 32 else pk
+    hr = 0xFFFFFFFF if pos >= 32 else pr | ((1 << pos) - 1)
+    hk_s = _s64((hk ^ _SIGN) & _U64)  # the bound in skey's signed order
+    at_most = (skey < hk_s) | ((skey == hk_s) & (rows <= hr))
+    cand = (mask & (part == 1)) | (in_part & at_most)
+    assert int(cand.sum()) <= k - 1 + cap
+    # pass 4: sort them by (!mask, key, row) and keep k
+    ids = rows[cand]
+    return ids[topk_order_plain(mask[cand], start[cand])][:k]
+
+
 def scan_topk_plain(plan, k: int, cols, valid, start) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int64 [k], int64 scalar): the first k row ids in (matching first,
     start DESC, row ASC) order, and the match count."""
@@ -454,21 +551,24 @@ def scan_topk(plan: ScanPlan, k: int, cols, valid: torch.Tensor, start: torch.Te
 
 
 def scan_topk_launch(plan: ScanPlan, k: int, cols, valid: torch.Tensor, start: torch.Tensor):
-    """Check what kernel K takes; return (its launch, (ids, count)). The
-    sort's scratch (12 bytes a row) is allocated here."""
+    """Check what kernel K takes; return (its launch, (ids, count)). Its
+    scratch (the select's state, a bitmap and the candidates, about N/8
+    bytes; or 12 bytes a row for the full sort) is allocated here."""
     table, n_cols, n_ins, n_leaves = _program_args(plan, cols, valid, "scan_topk")
     n = valid.shape[0]
     if not 0 < k <= n:
         raise ValueError(f"scan_topk: k = {k} for {n} rows")
+    if topk_route(n, k) == "sort" and n & (n - 1):
+        raise ValueError(f"scan_topk: k = {k} above {TOPK_SELECT_MAX} sorts all rows, and "
+                         f"{n} rows are not a power of two")
     _build.require(start, torch.int64, (n,), "scan_topk start", valid.device)
     dev = valid.device
-    keys = torch.empty((n,), dtype=torch.int64, device=dev)
-    tags = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    scratch = torch.empty((lib.cadence_vis_topk_scratch(n, k),), dtype=torch.uint8, device=dev)
     ids = torch.empty((k,), dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    launch = _build.launcher("vis_topk", _build.load().cadence_vis_topk, table, n_cols, n_ins,
-                             n_leaves, valid, start, n, k, keys, tags, ids, count,
-                             _build.stream_of(valid))
+    launch = _build.launcher("vis_topk", lib.cadence_vis_topk, table, n_cols, n_ins, n_leaves,
+                             valid, start, n, k, scratch, ids, count, _build.stream_of(valid))
     launch.outputs = tuple(cols)
     return launch, (ids, count)
 

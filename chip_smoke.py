@@ -52,10 +52,12 @@ Phases, one JSON line each:
      Started to Completed, 256 sampled workflows (8 blocks of 32, their lanes
      made by the plain version on the CPU in the generation pool) equal to
      kernel I's and, through kernels A and B, to the oracle's rows.
-     kernel_replay_gen: kernel A's generator reader, its state equal to
-     kernel A's on kernel I's lanes (all 66 tensors) and, at 4,096 x 1,000,
-     to the plain fused loop's; timed at 16,384 and at a chunk that fills
-     the card, beside the bound.
+     kernel_replay_gen: kernel A's generator reader (csrc/replay_gen.cu), its
+     state equal to kernel A's on kernel I's lanes (all 66 tensors) and, at
+     4,096 x 1,000, to the plain fused loop's; timed at 16,384 and at a
+     chunk that fills the card, and at each of its block shapes (1 or 2
+     threads a workflow) at both, beside the bound; the registers and
+     spills ptxas reports for its instances and for kernel A's.
   3b. north_star, configuration ns-1m (BASELINE.md's north star, bench.py's
      _north_star): 1,000,000 workflows rounded up to whole chunks x 1,000
      events, seed 20260730, through generate_and_replay_sharded_crc over a
@@ -135,10 +137,13 @@ Phases, one JSON line each:
      L (vis_apply) on the device visibility table at 16,777,216 rows (7
      builtin and 16 attribute columns, 3.1 GB, bench.py's population shape
      from seed 20260804): bench.py's six selectivity queries and a 12-leaf
-     and/or plan through J and through K at k = 128 and 4,096, and delta
-     batches of 512 and 65,536 rows (pads, one negative index) through L,
-     each equal to its plain version (tolerance 0) and timed beside its
-     bound.
+     and/or plan through J and through K at k = 128 and 4,096; K on
+     half_open, the and/or plan and a ties table (half_open over 16 start
+     times) at k = 1, 101, 128, 4,096 and 16,384 (above the select route:
+     the full sort), timed beside its byte bound, torch.sort and torch.topk
+     of its keys; and delta batches of 512 and 65,536 rows (pads, one
+     negative index) through L, each equal to its plain version (tolerance
+     0) and timed beside its bound.
  11. visibility_path: Stores().visibility with CADENCE_TPU_VISIBILITY=1 on
      the card over bench.py's population at 1,048,576 records and a `ties`
      domain of 4,096 records on 16 start times: with parity on, the six
@@ -170,11 +175,14 @@ import sys
 import time
 import zlib
 
-# H100 SXM published peaks: HBM bytes/s, and the non-tensor-core scalar rate,
-# used for the kernels' integer ALU operations (no integer rate outside the
-# tensor cores is published).
+# H100 SXM published peak HBM bytes/s (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+# 32-bit integer add, multiply-add, shift and logic instructions a clock on
+# one streaming multiprocessor of compute capability 9.0 (the CUDA C++
+# Programming Guide's table of arithmetic instruction throughputs). The
+# kernels' integer work is bounded by this times the card's SMs times the SM
+# clock nvidia-smi reads (clocks.max.sm): int_ops_per_s().
+INT_OPS_PER_CLOCK_PER_SM = 64
 
 SEED = 20260730
 TARGET_EVENTS = 120
@@ -206,12 +214,25 @@ GEN_CHECK_W = 16384
 NS_BLOCK, NS_BLOCKS = 32, 8
 #: the host generator's corpus through kernel A, and its oracle sample
 NATIVE_GEN_W, NATIVE_GEN_SAMPLE = 4096, 64
-#: integer operations of one generator step (genkernel.cuh step): four
-#: splitmix hashes of 14 64-bit operations, about four modulos of 3, the
-#: occupancy counts and the action selects (about 40), the slot update and
-#: the 18 lanes; each 64-bit multiply counted once, though it costs several
-#: 32-bit instructions on this card
-GEN_OPS_PER_EVENT = 130
+#: 32-bit instructions of the generator's 64-bit operations as the built
+#: library's SASS (cuobjdump -sass of kernel I) compiles them: a multiply by
+#: a constant is IMAD, IMAD.WIDE.U32, IMAD and IMAD.IADD; an add, a shift
+#: or an xor two
+MUL64, ADD64, SHIFT64, XOR64 = 4, 2, 2, 2
+#: one splitmix hash at a step: its salt term added, two xor-shift-multiply
+#: rounds, one xor-shift (the workflow's term is made once a workflow, the
+#: step's once a step for the four hashes)
+MIX_OPS = ADD64 + 2 * (SHIFT64 + XOR64 + MUL64) + SHIFT64 + XOR64
+#: die(r, n), jnp.abs(r) % n: the abs, a signed remainder by a constant
+#: through a 64-bit multiply-high, and the floor fix, 27 instructions in that
+#: SASS; by a power of two (16, 8), 8
+DIE_OPS, DIE2_OPS = 27, 8
+#: the action's choice: five popcounts, the drain test and the select chains
+SELECT_OPS = 40
+#: 32-bit integer instructions of every generated event: the four hashes
+#: with the step term, the timestamp's die(r3, 5000), die(r0, 16),
+#: die(r1, 8) and the choice; gen_ops adds the attribute draws by type
+GEN_OPS_PER_EVENT = 4 * MIX_OPS + ADD64 + DIE_OPS + 2 * DIE2_OPS + SELECT_OPS
 #: verify_path's suites beside the overflow suite (whose workflows are
 #: mostly gen_basic's)
 VERIFY_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "ndc")
@@ -227,6 +248,14 @@ VIS_RECORDS = 1 << 20
 VIS_SEED = 20260804
 #: kernels J, K and L, which visibility_path must launch
 VISIBILITY_PATH_KERNELS = ("vis_mask", "vis_topk", "vis_apply")
+#: kernel K's k in kernel_vis: one row, a page of 100 plus one, a page of
+#: 128, 4,096, and one above the select route's largest (the full sort);
+#: the queries timed at each (and the ties table), and K's functions
+TOPK_KS = (1, 101, 128, 4096, 16384)
+TOPK_TIMED = ("half_open", "and_or_12")
+TOPK_FUNCTIONS = ("topk_scan_kernel", "topk_hist_kernel", "topk_compact_kernel",
+                  "topk_sort_kernel", "vis_keys_kernel", "bitonic_tile_kernel",
+                  "bitonic_global_kernel")
 
 
 def emit(phase: str, **fields) -> None:
@@ -730,10 +759,33 @@ def check_launches(launches: dict, path: str, kernels) -> None:
             fail(f"{path}: kernel {k} was never launched")
 
 
+_INT_OPS_PER_S = []
+
+
+def int_ops_per_s() -> float:
+    """The card's 32-bit integer instruction rate: INT_OPS_PER_CLOCK_PER_SM x
+    its SMs x the SM clock nvidia-smi reads as clocks.max.sm (MHz)."""
+    if not _INT_OPS_PER_S:
+        import torch
+
+        mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                             timeout=60).stdout.split()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _INT_OPS_PER_S.append(INT_OPS_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6)
+    return _INT_OPS_PER_S[0]
+
+
+def bound_ms(nbytes, ops) -> float:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the integer instructions over int_ops_per_s()."""
+    return max(nbytes / HBM_BYTES_PER_S, ops / int_ops_per_s()) * 1e3
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
                   library_ms=None, **extra):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / int_ops_per_s() * 1e3
     rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
@@ -1229,6 +1281,44 @@ def vis_queries(n: int):
                           "OR (F5 > 2 AND CloseTime > 0) OR S4 = 's2'")]
 
 
+def check_topk(plan, k, cols, valid, start, order, count: int, name: str) -> int:
+    """Kernel K at k against the plain order (ids and count exactly); the
+    number of ids that differ (0, or the phase fails)."""
+    import torch
+
+    from cadence_tpu_torch.ops import scan as S
+
+    ids, c_k = S.scan_topk(plan, k, cols, valid, start)
+    bad = int((ids != order[:k]).sum())
+    if bad or int(c_k) != count:
+        fail(f"kernel_vis {name}: kernel K at k={k} differs from its plain version "
+             f"({bad} ids, count {int(c_k)} against {count})")
+    return bad
+
+
+def time_topk(plan, k, cols, valid, start, mask) -> dict:
+    """Kernel K's launch at k timed between CUDA events, beside its byte
+    bound and the yardsticks on the same keys: torch.sort of the -start
+    keys (the full sort), and torch.topk of them with non-matching rows
+    keyed to INT64_MAX (one library call for the same selection)."""
+    import torch
+
+    from cadence_tpu_torch.ops import scan as S
+
+    n = start.shape[0]
+    neg = torch.where(start == -(1 << 63), start, -start.clamp(min=-(1 << 63) + 1))
+    keys = torch.where(mask, neg, torch.full_like(neg, (1 << 63) - 1))
+    k_cols = len(set(plan.slots) | {"start_time"})
+    rec = {"route": S.topk_route(n, k),
+           "ms": cuda_ms(lambda run: run(), setup=lambda: S.scan_topk_launch(
+               plan, k, cols, valid, start)[0]),
+           "bound_ms": (n * (8 * k_cols + 1) + 8 * k) / HBM_BYTES_PER_S * 1e3,
+           "sort_ms": cuda_ms(lambda _: torch.sort(neg, stable=True)),
+           "topk_ms": cuda_ms(lambda _: torch.topk(keys, k, largest=False))}
+    del neg, keys
+    return rec
+
+
 def kernel_vis(args, dev, records):
     """Kernels J, K and L against their plain versions (exactly) on the
     columnar table at args.vis_rows rows, each launch timed between CUDA
@@ -1277,30 +1367,68 @@ def kernel_vis(args, dev, records):
         rec["j_count_bound_ms"] = col_bytes / HBM_BYTES_PER_S * 1e3
         rec["j_bitmap_bound_ms"] = (col_bytes + n // 8) / HBM_BYTES_PER_S * 1e3
         mask = S.mask_plain(plan, pc, valid)
-        for k in (128, 4096):
-            ids, c_k = S.scan_topk(plan, k, pc, valid, start)
-            want_ids = S.topk_order_plain(mask, start)[:k]
-            err["K"] = max(err["K"], int((ids != want_ids).sum()))
-            if not torch.equal(ids, want_ids) or int(c_k) != int(want):
-                fail(f"kernel_vis {name}: kernel K at k={k} differs from its plain version")
-            rec[f"k{k}_ms"] = cuda_ms(launch, setup=lambda: S.scan_topk_launch(
-                plan, k, pc, valid, start)[0], warm=k == 128)
-            k_cols = len(set(plan.slots) | {"start_time"})
-            rec[f"k{k}_bound_ms"] = (n * (8 * k_cols + 1) + 8 * k) / HBM_BYTES_PER_S * 1e3
+        order = S.topk_order_plain(mask, start)
+        for k in (TOPK_KS if name in TOPK_TIMED else (128, 4096)):
+            err["K"] = max(err["K"], check_topk(plan, k, pc, valid, start, order, int(want),
+                                                name))
+            if name in TOPK_TIMED:
+                rec[f"k{k}"] = time_topk(plan, k, pc, valid, start, mask)
         out[name] = rec
-        del mask
+        del mask, order
+    # K on the ties table: half_open over a start column of 16 values
+    # (visibility_path's ties domain at the table's size)
+    tp = plans["half_open"]
+    tc = [cols[s] for s in tp.slots]
+    ties = torch.from_numpy(1_700_000_000_000_000_000 + (np.arange(n, dtype=np.int64) % 16)
+                            * 1000).to(dev)
+    t_mask = S.mask_plain(tp, tc, valid)
+    t_order = S.topk_order_plain(t_mask, ties)
+    t_count = int(t_mask.sum())
+    out["ties"] = {"count": t_count, "start_values": 16}
+    for k in TOPK_KS:
+        err["K"] = max(err["K"], check_topk(tp, k, tc, valid, ties, t_order, t_count, "ties"))
+        out["ties"][f"k{k}"] = time_topk(tp, k, tc, valid, ties, t_mask)
+    del ties, t_mask, t_order
+    # K's traps at the table's size, each at k = 1, 101, 128 and 4,096 (the
+    # select route): a plan that matches no row (count 0), one that matches
+    # at most the last 7 rows (count < k: the tail is non-matching rows in
+    # (-start, row) order), and half_open over a start column of INT64_MIN,
+    # INT64_MAX, -1 and 0 (the key of INT64_MIN wraps, and four values tie)
+    traps = {}
+    for name, q in (("no_match", "WorkflowType = 'wt-none'"),
+                    ("last_7", f"StartTime > {1_700_000_000_000_000_000 + (n - 8) * 1000}")):
+        node, _ = parse_query(q)
+        traps[name] = (S.compile_plan(And(Cmp("__domain__", "=", "bench"), node), binder), start)
+    edges = torch.tensor([-(1 << 63), (1 << 63) - 1, -1, 0], dtype=torch.int64, device=dev)
+    pick = np.random.default_rng(VIS_SEED + 2).integers(0, 4, n)
+    traps["int64_edges"] = (tp, edges[torch.from_numpy(pick).to(dev)])
+    out["traps"] = {}
+    for name, (plan, st) in traps.items():
+        pc = [cols[s] for s in plan.slots]
+        m = S.mask_plain(plan, pc, valid)
+        order = S.topk_order_plain(m, st)
+        count = int(m.sum())
+        first = int(st[order[0]])
+        out["traps"][name] = {"count": count, "first_start": first}
+        if (name == "no_match" and count != 0) or (name == "last_7" and not 0 < count < 101) \
+                or (name == "int64_edges" and first != -(1 << 63)):
+            fail(f"kernel_vis {name}: the trap is not what it should pin (count {count}, "
+                 f"first start {first})")
+        for k in (1, 101, 128, 4096):
+            err["K"] = max(err["K"], check_topk(plan, k, pc, valid, st, order, count, name))
+        del m, order, st
+    del traps, edges
     # the records: J's count and K's k = 128 on narrow_and and half_open
     # (bench.py's selective Count and the page walk's shape), each with its
-    # plain version's time and, for K, the yardstick torch.sort of its keys
+    # plain version's time and, for K, the yardsticks torch.sort and
+    # torch.topk of its keys
     jp = plans["narrow_and"]
     jc = [cols[s] for s in jp.slots]
     ms_jp = cuda_ms(lambda _: S.scan_count_plain(jp, jc, valid), PLAIN_REPS)
     kp = plans["half_open"]
     kc = [cols[s] for s in kp.slots]
     ms_kp = cuda_ms(lambda _: S.scan_topk_plain(kp, 128, kc, valid, start), PLAIN_REPS)
-    neg = torch.where(start == -(1 << 63), start, -start.clamp(min=-(1 << 63) + 1))
-    ms_sort = cuda_ms(lambda _: torch.sort(neg, stable=True))
-    del neg
+    k128 = out["half_open"]["k128"]
     records.append(kernel_record(
         "vis_mask", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:260", None, err["J"],
         out["narrow_and"]["j_count_ms"], ms_jp, n * (8 * len(jp.slots) + 1),
@@ -1309,9 +1437,12 @@ def kernel_vis(args, dev, records):
     k_cols = len(set(kp.slots) | {"start_time"})
     records.append(kernel_record(
         "vis_topk", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:288", None, err["K"],
-        out["half_open"]["k128_ms"], ms_kp, n * (8 * k_cols + 1) + 8 * 128, 0, rows=n, k=128,
-        query="half_open", yardstick="torch.sort(stable) of the int64 -start keys",
-        yardstick_ms=ms_sort))
+        k128["ms"], ms_kp, n * (8 * k_cols + 1) + 8 * 128, 0, k128["topk_ms"], rows=n, k=128,
+        query="half_open", route=k128["route"],
+        library="torch.topk(keys, k, largest=False), non-matching rows keyed to INT64_MAX",
+        yardstick="torch.sort(stable) of the int64 -start keys", yardstick_ms=k128["sort_ms"],
+        by_k={k: out["half_open"][f"k{k}"] for k in TOPK_KS},
+        ptxas={f: ptxas_usage(_build.build_log, f) for f in TOPK_FUNCTIONS}))
     # L: delta batches of 512 and 65,536 rows, with pads (index N) and one
     # negative index, into all 23 columns and valid, against the plain
     # version on a copy of the table
@@ -1512,9 +1643,19 @@ def visibility_path(args):
     return launches
 
 
-def gen_ops(W: int, E: int) -> int:
-    """Integer operations of generating W x E events (GEN_OPS_PER_EVENT)."""
-    return W * E * GEN_OPS_PER_EVENT
+def gen_ops(lanes) -> int:
+    """32-bit integer instructions of generating these [W, E, 18] lanes:
+    GEN_OPS_PER_EVENT each, and the attribute draws the events' types use
+    (a die and an add each): three for ActivityTaskScheduled, one for
+    TimerStarted and one for WorkflowExecutionStarted. Counted from the
+    types this run's lanes hold."""
+    from cadence_tpu_torch.core.enums import EventType as ET
+
+    types = lanes[:, :, 1]
+    draws = (3 * int((types == int(ET.ActivityTaskScheduled)).sum())
+             + int((types == int(ET.TimerStarted)).sum())
+             + int((types == int(ET.WorkflowExecutionStarted)).sum()))
+    return types.numel() * GEN_OPS_PER_EVENT + draws * (DIE_OPS + ADD64)
 
 
 def gen_kernels(args, corp, dev, records):
@@ -1568,7 +1709,7 @@ def gen_kernels(args, corp, dev, records):
     regs_i = ptxas_usage(_build.build_log, "gen_lanes_kernel")
     records.append(kernel_record(
         "gen_lanes", "cadence_tpu_torch/csrc/genkernel.cu", "cadence_tpu/ops/genkernel.py:318",
-        None, err_i, ms_i, ms_ip, W * E * 144, gen_ops(W, E),
+        None, err_i, ms_i, ms_ip, W * E * 144, gen_ops(lk),
         also_replaces=["cadence_tpu/ops/genkernel.py:135", "cadence_tpu/ops/genkernel.py:112"],
         hook="cadence_tpu_torch/csrc/genkernel.cuh", shape=[W, E], ptxas=regs_i,
         timed=f"median of {REPS} single launches; plain: median of {PLAIN_REPS}"))
@@ -1580,7 +1721,7 @@ def gen_kernels(args, corp, dev, records):
     # lanes (the materialize-then-replay contract), and the plain fused loop
     s_g = G.gen_scan(init_state(W, device=dev), SEED, 0, E)
     states_equal(s_g, s_a, "replay_gen against kernel A on kernel I's lanes")
-    ops_w = gen_ops(W, E) + replay_ops(lk)
+    ops_w = gen_ops(lk) + replay_ops(lk)
     del lk, s_a
     torch.cuda.empty_cache()
     wc = args.gen_plain_w
@@ -1596,29 +1737,130 @@ def gen_kernels(args, corp, dev, records):
     sb = state_bytes(s_g)
     fill = max(args.ns_chunks)
     ms_fill = cuda_ms(launch, setup=lambda: G.gen_launch(fresh(fill), SEED, 0, E))
+    # each shape the launch chooses between, at both widths: threads a workflow
+    by_tpw = {f"{w}x{tpw}": cuda_ms(launch, 3, setup=lambda w=w, tpw=tpw: gen_c_launch(
+        _build.load().cadence_replay_gen, fresh(w), E, tpw, "replay_gen"))
+        for w in (W, fill) for tpw in (1, 2)}
+    # the same kernel with its draws made in the stepping loop, on the chain:
+    # what making them ahead, by the whole block, saves
+    inline = gen_inline_draws(s_g, E, (W, fill), (1, 2))
     torch.cuda.empty_cache()
     # the fill chunk's operations: the W-workflow count scaled to its width
     ops_fill = ops_w * fill // W
     sb_fill = sb // W * fill
-    bound = lambda nbytes, ops: max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3  # noqa
-    regs_g = ptxas_usage(_build.build_log, "replay_kernelILi3ELb0E")
+    regs_g = {f"tpw{t}": ptxas_usage(_build.build_log, f"replay_gen_kernelILi{t}E")
+              for t in (1, 2)}
+    regs_a = {name: ptxas_usage(_build.build_log, f"replay_kernelILi{r}ELb{b}E")
+              for name, r, b in (("int64", 0, 0), ("wire32", 1, 0), ("wirec", 2, 0),
+                                 ("int64_tasks", 0, 1), ("wire32_tasks", 1, 1))}
     records.append(kernel_record(
-        "replay_gen", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/genkernel.py:332",
+        "replay_gen", "cadence_tpu_torch/csrc/replay_gen.cu", "cadence_tpu/ops/genkernel.py:332",
         None, err_g, ms_g, ms_gp, sb, ops_w,
         also_replaces=["cadence_tpu/ops/genkernel.py:357", "cadence_tpu/ops/genkernel.py:371",
                        "cadence_tpu/ops/genkernel.py:440", "cadence_tpu/ops/genkernel.py:462"],
-        hook="cadence_tpu_torch/csrc/genkernel.cuh", shape=[W, E], events_per_s=W * E / ms_g * 1e3,
-        fill_shape=[fill, E], fill_ms=ms_fill, fill_bound_ms=bound(sb_fill, ops_fill),
-        fill_events_per_s=fill * E / ms_fill * 1e3, ptxas=regs_g,
+        hook="cadence_tpu_torch/csrc/replay_gen.cuh", shape=[W, E],
+        events_per_s=W * E / ms_g * 1e3, fill_shape=[fill, E], fill_ms=ms_fill,
+        fill_bound_ms=bound_ms(sb_fill, ops_fill), fill_events_per_s=fill * E / ms_fill * 1e3,
+        ms_by_width_and_threads_per_workflow=by_tpw, ms_draws_on_the_chain=inline,
+        gen_ops_per_event=GEN_OPS_PER_EVENT, int_ops_per_s=int_ops_per_s(), ptxas=regs_g,
+        ptxas_kernel_a=regs_a,
         timed=f"median of {REPS} single launches, each on a fresh state; plain: one run"))
     emit("kernel_replay_gen", equal_states=66, against=["kernel A on kernel I's lanes",
                                                        f"the plain fused loop at {wc} x {E}"],
-         max_abs_err=err_g, ms=ms_g, plain_ms=ms_gp, bound_ms=bound(sb, ops_w),
+         max_abs_err=err_g, ms=ms_g, plain_ms=ms_gp, bound_ms=bound_ms(sb, ops_w),
          events_per_s=W * E / ms_g * 1e3, fill_chunk=fill, fill_ms=ms_fill,
-         fill_bound_ms=bound(sb_fill, ops_fill), fill_events_per_s=fill * E / ms_fill * 1e3,
-         fill_state_bytes=sb_fill, ptxas=regs_g)
+         fill_bound_ms=bound_ms(sb_fill, ops_fill), fill_events_per_s=fill * E / ms_fill * 1e3,
+         fill_state_bytes=sb_fill, ms_by_width_and_threads_per_workflow=by_tpw,
+         ms_draws_on_the_chain=inline,
+         gen_ops_per_event=GEN_OPS_PER_EVENT, ptxas=regs_g, ptxas_kernel_a=regs_a)
     del s_g
     torch.cuda.empty_cache()
+
+
+#: csrc/replay_gen.cu edited so that each stepping thread makes its own
+#: step's draws in the step (the tile phase makes none): the comparison
+#: gen_inline_draws times
+INLINE_DRAWS = (
+    ("      if (s < n && w0 + x < W) dice[j] = gen::pack_dice(seed, first_index + w0 + x, e0 + s);",
+     "      (void)s, (void)x;"),
+    ("        st.step(S, c, tables, e0 + s, E, dice[s * GEN_WF + wl]);",
+     "        st.step(S, c, tables, e0 + s, E,\n"
+     "                gen::pack_dice(seed, first_index + w0 + wl, e0 + s));"),
+)
+
+
+def gen_c_launch(fn, s, E: int, tpw: int, what: str):
+    """A call that runs `fn`, a C entry point with cadence_replay_gen's
+    signature, on state `s` (workflows 0 .. W - 1 of SEED, E events) with
+    `tpw` threads a workflow. It counts no launch."""
+    from cadence_tpu_torch.ops import _build, genkernel as G
+    from cadence_tpu_torch.ops.state import layout_of
+
+    lay = layout_of(s)
+    args = (_build.state_pointer_table(s), G._wrap(SEED), 0, s.state.shape[0], E,
+            _build.caps(lay), lay.max_branches, lay.max_version_history_items, tpw,
+            _build.stream_of(s.state))
+
+    def go():
+        _build.check(fn(*args), what)
+
+    go.state = s  # the launch holds the state its pointers point into
+    return go
+
+
+def gen_inline_draws(want, E: int, widths, tpws) -> dict:
+    """Milliseconds of kernel A's generator reader built from
+    csrc/replay_gen.cu with INLINE_DRAWS applied (the draws on each
+    stepping thread's chain), at each width and threads a workflow, each
+    launch on a fresh state; its state at want's width must equal `want`
+    (kernel A's generator reader's). Built with nvcc into a temporary
+    directory under csrc/_build, and used for this timing alone."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cadence_tpu_torch.device import nvcc_path
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.ops.state import init_state, leaves
+
+    src = open(os.path.join(_build._CSRC, "replay_gen.cu")).read()
+    for a, b in INLINE_DRAWS:
+        if a not in src:
+            fail("gen_inline_draws: csrc/replay_gen.cu no longer has the line to edit")
+        src = src.replace(a, b)
+    os.makedirs(_build._BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build._BUILD_DIR)
+    try:
+        cu, so = os.path.join(tmp, "replay_gen_inline.cu"), os.path.join(tmp, "inline.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        subprocess.run([nvcc_path(), _build._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-shared", "-I", _build._CSRC, "-o", so, cu], check=True,
+                       capture_output=True, timeout=600)
+        fn = ctypes.CDLL(so).cadence_replay_gen
+        fn.restype = ctypes.c_int
+        fn.argtypes = _build.load().cadence_replay_gen.argtypes
+
+        def run(w, tpw):
+            return gen_c_launch(fn, init_state(w, device=want.state.device), E, tpw,
+                                "replay_gen (draws on the chain)")
+
+        out = {}
+        for w in widths:
+            for tpw in tpws:
+                go = run(w, tpw)
+                go()
+                if w == want.state.shape[0] and not all(
+                        torch.equal(x, y) for (_, x), (_, y) in zip(leaves(go.state),
+                                                                    leaves(want))):
+                    fail("gen_inline_draws: the edited kernel's state differs")
+                del go
+                out[f"{w}x{tpw}"] = cuda_ms(lambda go: go(), 3, setup=lambda: run(w, tpw))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def north_star(args, corp, dev):
@@ -2448,7 +2690,7 @@ def main() -> int:
     rung_bytes = sum(t.numel() * t.element_size() for t in rparts) + Wp * (8 + 4 + 1)
     rung_ops = (replay_ops(WC.decode_wirec_plain(*rparts, sub.profile), ladder.rung_layout(1))
                 + decode_ops(sub.profile, Wp * Ep) + Wp * DEFAULT_LAYOUT.width * 24)
-    rung_bound = max(rung_bytes / HBM_BYTES_PER_S, rung_ops / SCALAR_OPS_PER_S) * 1e3
+    rung_bound = bound_ms(rung_bytes, rung_ops)
     del s_r, rows_r, rparts
     emit("fallback_ladder", workflows=len(err_o),
          events=int((over_ev[:, :, LANE_EVENT_ID] > 0).sum()), flagged=len(flagged),
@@ -2459,7 +2701,7 @@ def main() -> int:
          counters=counters, rung1_shape=[Wp, Ep], rung1_ms=rung_ms,
          rung1_kernels_ms=sum(rung_ms.values()), rung1_plain_ms=rung_plain_ms,
          rung1_bound_ms=rung_bound,
-         rung1_bound_by="bytes" if rung_bytes / HBM_BYTES_PER_S >= rung_ops / SCALAR_OPS_PER_S
+         rung1_bound_by="bytes" if rung_bytes / HBM_BYTES_PER_S >= rung_ops / int_ops_per_s()
          else "operations")
 
     # --- 6. rebuild_path: the device rebuilder over the overflow jobs, a

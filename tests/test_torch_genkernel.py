@@ -241,3 +241,137 @@ def test_launches_refuse_the_cpu():
     tg.generate_lanes(1, 0, 4, 8, device=CPU)
     tg.generate_and_replay(1, 0, 4, 8, device=CPU)
     assert _build.launches == before  # the plain versions never count
+
+
+# --- kernel A's generator reader: the draws made ahead, one tile at a time ---
+
+def _jax_dice(seed, first, n, e0, steps):
+    """{field: [steps, n]} from the JAX package's _mix and _die, as the
+    generator step uses them (ts adds die(r3, 5000) + 1 ms; the attribute
+    lanes add their offsets)."""
+    w = jnp.arange(n, dtype=jnp.int64) + jnp.int64(first)
+    out = {name: [] for name in tg.DICE_FIELDS}
+    for s in range(steps):
+        r = {salt: jg._mix(jnp.int64(seed), w, e0 + s, salt) for salt in (1, 2, 3, 4)}
+        for name, (salt, mod, added, _lo, _bits) in tg.DICE_FIELDS.items():
+            out[name].append(np.asarray(jg._die(r[salt], mod)) + added)
+    return {name: np.stack(v) for name, v in out.items()}
+
+
+@pytest.mark.parametrize("seed,first,n,e0,steps", [
+    (42, 0, tg.GEN_WF, 0, tg.GEN_TILE),                   # one block's first tile
+    (42, tg.GEN_WF - 3, 6, tg.GEN_TILE - 2, 5),           # a block seam and a tile seam
+    (20260730, 999_990, 20, 1000 - tg.GEN_TILE, tg.GEN_TILE),  # the last tile of 1,000
+    (I64_MIN, 7, 9, 3, 4),
+    (I64_MAX, 123_456, 5, 0, 2),
+])
+def test_dice_tile_as_jax(seed, first, n, e0, steps):
+    words = tg.pack_dice_plain(seed, first, n, e0, steps)
+    assert words.shape == (steps, n) and bool((words >> 56 == 0).all())
+    got = tg.unpack_dice(words)
+    want = _jax_dice(seed, first, n, e0, steps)
+    for name in tg.DICE_FIELDS:
+        assert np.array_equal(got[name].numpy(), want[name]), name
+
+
+def test_dice_tiles_join_at_any_seam():
+    """Workflow w's draws at step e depend on (seed, w, e) alone: tiles cut
+    at any first index or step give the one-shot tile's words."""
+    whole = tg.pack_dice_plain(9, 100, 48, 0, 24)
+    for cut_w, cut_e in ((tg.GEN_WF, tg.GEN_TILE), (5, 1), (47, 23)):
+        top = torch.cat([tg.pack_dice_plain(9, 100, cut_w, 0, cut_e),
+                         tg.pack_dice_plain(9, 100 + cut_w, 48 - cut_w, 0, cut_e)], dim=1)
+        bottom = torch.cat([tg.pack_dice_plain(9, 100, cut_w, cut_e, 24 - cut_e),
+                            tg.pack_dice_plain(9, 100 + cut_w, 48 - cut_w, cut_e, 24 - cut_e)],
+                           dim=1)
+        assert torch.equal(torch.cat([top, bottom]), whole), (cut_w, cut_e)
+
+
+def test_dice_fields_fit_their_bits():
+    """Each draw's largest value fits its field, and the fields tile 56 bits."""
+    lo = 0
+    for name, (_salt, mod, added, low, bits) in tg.DICE_FIELDS.items():
+        assert low == lo and (mod - 1 + (added if name == "ts_ms" else 0)) < 1 << bits, name
+        lo += bits
+    assert lo == 56
+
+
+def test_dice_drive_the_plain_step():
+    """The lanes of gen_step come out of the unpacked words: the timestamp
+    advances by ts_ms milliseconds, and an ActivityTaskScheduled event
+    carries sched_to_start, sched_to_close and start_to_close."""
+    lanes = tg.generate_lanes(42, 0, W, E, device=CPU)
+    words = tg.pack_dice_plain(42, 0, W, 0, E)
+    d = {k: v.T.numpy() for k, v in tg.unpack_dice(words).items()}
+    ts = lanes[:, :, 3].numpy()
+    assert np.array_equal(ts[:, 1:] - ts[:, :-1], d["ts_ms"][:, 1:] * tg.NANOS_MS)
+    sched = lanes[:, :, 1].numpy() == int(EventType.ActivityTaskScheduled)
+    assert sched.sum() > 20
+    for lane, name in ((8, "sched_to_start"), (9, "sched_to_close"), (10, "start_to_close")):
+        assert np.array_equal(lanes[:, :, lane].numpy()[sched], d[name][sched]), name
+
+
+def test_replay_gen_refuses_tables_past_its_masks():
+    """The generator reader holds each table's occupancy in 64 bits: a
+    layout with more activity, timer or child slots is refused before any
+    launch."""
+    from cadence_tpu_torch.ops.state import init_state, widen_layout
+
+    wide = init_state(2, widen_layout(tg.DEFAULT_LAYOUT, 8), device=CPU)
+    with pytest.raises(ValueError, match="at most 64"):
+        tg.gen_launch(wide, 1, 0, 4)
+    assert tg.GEN_MAX_SLOTS == 64
+
+
+def _csrc(name: str) -> str:
+    import pathlib
+
+    return (pathlib.Path(tg.__file__).parents[1] / "csrc" / name).read_text()
+
+
+def test_gen_tile_constants_are_the_kernels():
+    """GEN_WF and GEN_TILE are csrc/replay_gen.cu's, and GEN_MAX_SLOTS is
+    replay_gen.cuh's GEN_MAX_K."""
+    import re
+
+    consts = dict(re.findall(r"constexpr int (GEN_\w+) = (\d+);",
+                             _csrc("replay_gen.cu") + _csrc("replay_gen.cuh")))
+    assert (int(consts["GEN_WF"]), int(consts["GEN_TILE"])) == (tg.GEN_WF, tg.GEN_TILE)
+    assert int(consts["GEN_MAX_K"]) == tg.GEN_MAX_SLOTS
+
+
+def test_dice_layout_is_the_kernels():
+    """DICE_FIELDS is genkernel.cuh's draws bit for bit: each field's salt
+    and modulus as LazyDice draws it, its low bit as pack_dice shifts it,
+    and its width and offset as PackedDice reads it."""
+    import re
+
+    src = _csrc("genkernel.cuh")
+    lazy = src[src.index("struct LazyDice"):src.index("struct PackedDice")]
+    drawn = {name: (int(r) + 1, int(n), int(pre or post or 0)) for name, pre, r, n, post in
+             re.findall(r"int64_t (\w+)\(\) const \{ return (?:(\d+) \+ )?die\(r(\d), "
+                        r"(\d+)\)(?: \+ (\d+))?; \}", lazy)}
+    pack = src[src.index("uint64_t pack_dice"):src.index("struct PackedDice")]
+    pack = pack[pack.index("return"):]
+    shifted = {}
+    for term in pack[:pack.index(";")].split("|"):
+        m = re.search(r"u\(d\.(\w+)\(\)\)(?: << (\d+))?", term)
+        if m:  # a LazyDice draw, by name
+            salt, n, _ = drawn[m.group(1)]
+        else:  # die(d.rX, n) in place
+            m = re.search(r"u\(die\(d\.r(\d), (\d+)\)\) << (\d+)", term)
+            salt, n = int(m.group(1)) + 1, int(m.group(2))
+        shifted[(salt, n)] = int(m.groups()[-1] or 0)
+    packed = src[src.index("struct PackedDice"):]
+    packed = packed[:packed.index("};")]
+    read = {name: (int(add or 0), int(lo), int(bits)) for name, add, lo, bits in
+            re.findall(r"int64_t (\w+)\(\) const \{ return (?:(\d+) \+ )?bits\((\d+), "
+                       r"(\d+)\); \}", packed)}
+    assert len(shifted) == len(tg.DICE_FIELDS)
+    for name, (salt, n, added, lo, bits) in tg.DICE_FIELDS.items():
+        assert shifted[(salt, n)] == lo, name
+        # ts_ms is packed as it is used (+ 1 in LazyDice); the rest add on read
+        stored = added if name == "ts_ms" else 0
+        assert read[name] == (added - stored, lo, bits), name
+        if name in drawn:
+            assert drawn[name] == (salt, n, added), name

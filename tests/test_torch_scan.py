@@ -288,3 +288,102 @@ def test_apply_as_jax(bucket):
                         [torch.from_numpy(v) for v in vals])
     for g, w in zip(got, want):
         assert g.numpy().tobytes() == np.asarray(w).tobytes()
+
+
+# --- kernel K's select route: its plain twin against the lexsort and JAX ---
+
+_BASE = 1_700_000_000_000_000_000
+
+
+def _topk_case(name, n):
+    """(mask, start) of one shape kernel K's select must meet: start times
+    sharing their high bits, 16 start times (visibility_path's ties
+    domain), INT64_MIN and the other edges, no match, fewer matches than a
+    page, one start time for every row, keys over the whole int64 range."""
+    rng = np.random.default_rng(_TOPK_CASES.index(name))
+    mask = rng.random(n) < 0.5
+    if name == "shared_high_bits":
+        start = _BASE + rng.integers(0, 1 << 20, n)
+    elif name == "ties_16":
+        start = _BASE + (np.arange(n) % 16) * 1000
+    elif name == "int64_min":
+        start = rng.choice(np.array([I64_MIN, I64_MIN + 1, -1, 0, 5, I64_MAX]), n)
+    elif name == "count_0":
+        mask[:] = False
+        start = _BASE + rng.integers(0, 100, n)
+    elif name == "below_k":
+        mask[:] = False
+        mask[rng.choice(n, 7, replace=False)] = True
+        start = _BASE + rng.integers(0, 50, n)
+    elif name == "all_equal":
+        start = np.full(n, _BASE)
+    else:  # "full_range"
+        start = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64)
+    return mask, np.asarray(start, dtype=np.int64)
+
+
+_TOPK_CASES = ("shared_high_bits", "ties_16", "int64_min", "count_0", "below_k", "all_equal",
+               "full_range")
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["kernel_constants", "many_passes"])
+@pytest.mark.parametrize("case", _TOPK_CASES)
+def test_topk_select_as_jax(case, small):
+    """The select-then-sort stages (the first differing bit, digit
+    histograms, the boundary bucket, the candidates, their sort) give the
+    first k of topk_order_plain and of JAX build_topk for k = 1, a page
+    plus one, a page, and N. `many_passes` shrinks the digit to 3 bits and
+    the bucket cap to 8, so ties split by row and each select takes passes."""
+    n = 512
+    mask, start = _topk_case(case, n)
+    plan = ts.ScanPlan(0, ((ts.COL_ID, ts.OP_PRESENT, 0),), ("m",), np.zeros(1, np.int64),
+                       np.zeros(1))
+    jplan = js.ScanPlan(0, ((js.COL_ID, js.OP_PRESENT, 0),), ("m",), np.zeros(1, np.int64),
+                        np.zeros(1))
+    col = np.where(mask, 1, -1).astype(np.int64)
+    valid = np.ones(n, bool)
+    jids, jc = js.build_topk(jplan, n)((jnp.asarray(col),), jnp.asarray(valid),
+                                       jnp.asarray(start), jnp.asarray(jplan.iparams),
+                                       jnp.asarray(jplan.fparams))
+    order = ts.topk_order_plain(torch.from_numpy(mask), torch.from_numpy(start))
+    assert np.array_equal(order.numpy(), np.asarray(jids)) and int(jc) == int(mask.sum())
+    kw = {"digit": 3, "cap": 8} if small else {}
+    for k in (1, 101, 128, n):
+        got = ts.topk_select_plain(torch.from_numpy(mask), torch.from_numpy(start), k, **kw)
+        assert np.array_equal(got.numpy(), np.asarray(jids)[:k]), k
+        ids, c = ts.scan_topk(plan, k, [torch.from_numpy(col)], torch.from_numpy(valid),
+                              torch.from_numpy(start))
+        assert torch.equal(ids, got) and int(c) == int(mask.sum())
+
+
+def test_topk_route_by_k():
+    """Up to TOPK_SELECT_MAX the select route; above it the full sort,
+    which takes a power-of-two row count."""
+    assert ts.topk_route(1 << 24, 1) == ts.topk_route(1 << 24, 4096) == "select"
+    assert ts.topk_route(1 << 24, ts.TOPK_SELECT_MAX) == "select"
+    assert ts.topk_route(1 << 24, ts.TOPK_SELECT_MAX + 1) == "sort"
+    assert ts.TOPK_SELECT_MAX == ts.TOPK_SORT_MAX - ts.TOPK_CAP
+
+
+def test_topk_select_at_the_route_seam():
+    """k = TOPK_SELECT_MAX (the select's largest: at most k - 1 + TOPK_CAP
+    candidates, the sort's capacity) and k just above it, on 16,384 rows of
+    16 start times, against the JAX order."""
+    n = 16384
+    mask, start = _topk_case("ties_16", n)
+    want = np.asarray(jnp.lexsort((jnp.arange(n), -jnp.asarray(start), ~jnp.asarray(mask))))
+    m, st = torch.from_numpy(mask), torch.from_numpy(start)
+    for k in (ts.TOPK_SELECT_MAX, ts.TOPK_SELECT_MAX + 1, n):
+        assert np.array_equal(ts.topk_select_plain(m, st, k).numpy(), want[:k]), k
+
+
+def test_topk_constants_are_the_kernels():
+    """The twin's digit, cap and sort capacity are csrc/scan.cu's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ts.__file__).parents[1] / "csrc" / "scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr (?:int|int64_t) (K_\w+) = (\d+);", src))
+    assert int(consts["K_DIGIT"]) == ts.TOPK_DIGIT
+    assert int(consts["K_CAP"]) == ts.TOPK_CAP
+    assert int(consts["K_SORT_MAX"]) == ts.TOPK_SORT_MAX
