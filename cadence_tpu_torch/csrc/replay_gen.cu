@@ -6,7 +6,7 @@
 // workflow's events are generated and applied in the same loop and the
 // corpus never exists. The stepping thread's semantics are replay_gen.cuh's.
 //
-// What a plain fused loop (replay.cu's kernel with a generator in place of
+// What a plain fused loop (kernel A's kernel with a generator in place of
 // its event reader) runs into: one thread a workflow runs 1,000 dependent
 // steps, and its chain holds the generator's four splitmix hashes and their
 // modulos, which depend on no state, and loads from device memory: every

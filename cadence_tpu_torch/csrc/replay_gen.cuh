@@ -29,16 +29,12 @@
 #pragma once
 
 #include "genkernel.cuh"
-#include "replay_step.cuh"
+#include "replay_tables.cuh"
 
 namespace cadence {
 namespace {
 
 constexpr int GEN_MAX_K = 64;  // slots a table's occupancy bitmask holds
-
-__device__ __forceinline__ uint64_t slots_mask(int k) {
-  return k >= 64 ? ~0ull : (1ull << k) - 1;
-}
 
 // The activity, timer and child tables with their occupancy in registers and
 // their lookup keys in shared memory (`keys[s * stride]` is slot s, the

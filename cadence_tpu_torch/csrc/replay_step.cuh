@@ -1,12 +1,13 @@
 // One event's effect on one workflow's state: the semantics every
-// instance of kernel A shares (replay.cu's int64, wire32, wirec and TASKS
+// instance of kernel A shares (replay_kernel.cuh's int64, wire32, wirec and TASKS
 // readers, and the generator reader in replay_gen.cu).
 //
 // The scalars are held in registers (struct Scalars). The pending tables
 // are reached through a storage policy `T`: GlobalTables below reads and
-// writes them at the JAX [W, K] layout in device memory, as kernel A always
-// has; replay_gen.cuh's GenTables keeps their occupancy in registers and the
-// lookup keys in shared memory, and writes the same fields through.
+// writes them at the JAX [W, K] layout in device memory (kernel A's global
+// route); replay_tables.cuh's ChipTables (its staged route) and
+// replay_gen.cuh's GenTables keep their occupancy in registers and the
+// lookup keys in shared memory, and write the same fields through.
 // apply_event is the per-type switch of ops/transitions.py `step` after the
 // version-history update; each case calls one of the effect functions
 // below, which the generator reader also calls directly.
@@ -355,9 +356,32 @@ __device__ __forceinline__ void write_child(const StatePtrs& S, int64_t i, int64
 // lookup walks the occupancy row. Each insert returns false when the table
 // is full; each match returns whether any slot matched.
 struct GlobalTables {
+  // replay_kernel's __launch_bounds__ on this route: its block, no floor
+  static constexpr int MAX_THREADS = 128;
+  static constexpr int MIN_BLOCKS = 1;
+
   const StatePtrs& S;
   int64_t w;
   const Caps& c;
+
+  __device__ __forceinline__ GlobalTables(const StatePtrs& s, int64_t w_, const Caps& c_,
+                                          int64_t*, int, int)
+      : S(s), w(w_), c(c_) {}
+  __device__ __forceinline__ void load() {}
+  __device__ __forceinline__ void store() {}
+  __device__ __forceinline__ void reset() {}  // reset_row rewrote the tables
+  // the first occupied activity / timer slot at or after `from`, or -1
+  __device__ __forceinline__ int act_next(int from) const {
+    return next(fb(S, F_ACT_OCC) + w * c.ka, c.ka, from);
+  }
+  __device__ __forceinline__ int timer_next(int from) const {
+    return next(fb(S, F_TMR_OCC) + w * c.kt, c.kt, from);
+  }
+  __device__ __forceinline__ static int next(const uint8_t* occ, int k, int from) {
+    for (int i = from; i < k; ++i)
+      if (occ[i]) return i;
+    return -1;
+  }
 
   __device__ __forceinline__ bool act_insert(int64_t ev_id, int64_t ev_version, int64_t ts,
                                              int64_t batch_first, const int64_t* a) {

@@ -63,4 +63,7 @@ __device__ __forceinline__ uint8_t* fb(const StatePtrs& s, int f) {
 
 constexpr int64_t PAD = int64_t(1) << 62;
 
+// The most dynamic shared memory a block may have on sm_90 (227 KB).
+constexpr int SMEM_LIMIT = 232448;
+
 }  // namespace cadence

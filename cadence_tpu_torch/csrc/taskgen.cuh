@@ -7,18 +7,20 @@
 // cadence_tpu_torch/ops/taskgen.py, which the tests and chip_smoke.py hold
 // this code to.
 //
-// Included by replay.cu inside its namespace, after the event-type and
+// Included by replay_kernel.cuh inside its namespace, after the event-type and
 // timeout constants, wrap_add / wrap_mul and struct Scalars, which it uses.
 //
 // Design. The same thread that stepped the workflow emits its tasks from
-// the post-step state: the scalars it holds in registers and the pending
-// tables in device memory. The log counts and the overflow flag stay in
-// registers for the whole event loop; an entry is written straight to the
-// [W, T] log rows (the JAX layout). A `switch` on the event type decides
-// which entries an event writes, in the JAX order. At a batch's last event
-// the activity and user-timer scans walk the occupied slots once, reading
-// the table fields from device memory (no local copies), and fold the
-// JAX package's three masked minima into one pass (LexMin).
+// the post-step state: the scalars it holds in registers, the occupancy
+// through the route's table policy (act_next / timer_next) and the other
+// table fields from device memory, where every route writes them through.
+// The log counts and the overflow flag stay in registers for the whole
+// event loop; an entry is written straight to the [W, T] log rows (the JAX
+// layout). A `switch` on the event type decides which entries an event
+// writes, in the JAX order. At a batch's last event the activity and
+// user-timer scans walk the occupied slots once, reading the table fields
+// from device memory (no local copies), and fold the JAX package's three
+// masked minima into one pass (LexMin).
 //
 // Bound. A task entry is 24 B (transfer) or 48 B (timer) written once; the
 // scans re-read at most 12 fields of each occupied activity slot and 3 of
@@ -127,14 +129,13 @@ struct LexMin {
 // GenerateActivityTimerTasks at batch end: the first of the four candidate
 // timers of every pending activity (timer_sequence.go:219-254), created
 // unless its bit is already set.
-__device__ void activity_timer_task(const StatePtrs& S, int64_t w, int k_cap,
+template <class T>
+__device__ void activity_timer_task(const StatePtrs& S, const T& t, int64_t w, int k_cap,
                                     int64_t current_version, const TaskLogPtrs& L,
                                     TaskCursor& cur) {
   const int64_t base = w * k_cap;
-  const uint8_t* occ = fb(S, F_ACT_OCC) + base;
   LexMin lm;
-  for (int k = 0; k < k_cap; ++k) {
-    if (!occ[k]) continue;
+  for (int k = t.act_next(0); k >= 0; k = t.act_next(k + 1)) {
     const int64_t i = base + k;
     const int64_t eid = f64(S, F_ACT_SCHEDULE_ID)[i];
     const int64_t sched = f64(S, F_ACT_SCHEDULED_TIME)[i];
@@ -174,15 +175,14 @@ __device__ void activity_timer_task(const StatePtrs& S, int64_t w, int k_cap,
 }
 
 // GenerateUserTimerTasks at batch end (timer_sequence.go:127-160).
-__device__ void user_timer_task(const StatePtrs& S, int64_t w, int k_cap,
+template <class T>
+__device__ void user_timer_task(const StatePtrs& S, const T& t, int64_t w, int k_cap,
                                 int64_t current_version, const TaskLogPtrs& L,
                                 TaskCursor& cur) {
   const int64_t base = w * k_cap;
-  const uint8_t* occ = fb(S, F_TMR_OCC) + base;
   LexMin lm;
-  for (int k = 0; k < k_cap; ++k)
-    if (occ[k]) lm.add(f64(S, F_TMR_EXPIRY_TIME)[base + k], f64(S, F_TMR_STARTED_ID)[base + k],
-                       0, k);
+  for (int k = t.timer_next(0); k >= 0; k = t.timer_next(k + 1))
+    lm.add(f64(S, F_TMR_EXPIRY_TIME)[base + k], f64(S, F_TMR_STARTED_ID)[base + k], 0, k);
   if (!lm.found()) return;
   const int sel = lm.select(k_cap);
   int64_t vis = 0, eid = 0;
@@ -197,10 +197,12 @@ __device__ void user_timer_task(const StatePtrs& S, int64_t w, int k_cap,
 
 // step_tasks for one workflow and one event that applied cleanly (the
 // caller tests id > 0, no error after the step, not VH-only). `r` is the
-// post-step state; a0..a7 the event's attribute lanes that tasks read
-// (passed by value, so the caller's lanes stay in registers).
+// post-step state, `t` the route's tables; a0..a7 the event's attribute
+// lanes that tasks read (passed by value, so the caller's lanes stay in
+// registers).
+template <class T>
 __device__ __forceinline__ void step_tasks(const StatePtrs& S, int64_t w, const Caps& c,
-                                           const Scalars& r, const TaskLogPtrs& L,
+                                           const Scalars& r, const T& t, const TaskLogPtrs& L,
                                            TaskCursor& cur, int64_t ev_id, int64_t etype,
                                            int64_t ev_version, int64_t ts, int64_t batch_last,
                                            int64_t a0, int64_t a2, int64_t a3, int64_t a7) {
@@ -258,7 +260,7 @@ __device__ __forceinline__ void step_tasks(const StatePtrs& S, int64_t w, const 
       break;
   }
   if (batch_last == 1) {  // state_builder.go:634-640
-    activity_timer_task(S, w, c.ka, r.current_version, L, cur);
-    user_timer_task(S, w, c.kt, r.current_version, L, cur);
+    activity_timer_task(S, t, w, c.ka, r.current_version, L, cur);
+    user_timer_task(S, t, w, c.kt, r.current_version, L, cur);
   }
 }

@@ -1,6 +1,6 @@
 // The wirec decode as the kernels see it (ops/wirec.py): the per-lane
 // profile, passed to a kernel by value, and the decode of one lane's code.
-// Shared by kernel A's wirec reader (replay.cu) and kernel E (wirec.cu).
+// Shared by kernel A's wirec reader (replay_kernel.cuh) and kernel E (wirec.cu).
 //
 // Semantics are the JAX package's ops/wirec.py `_read_le` / `decode_step`:
 // - the top byte of a code is sign-extended, the lower bytes are OR-ed in

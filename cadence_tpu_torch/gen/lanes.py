@@ -187,3 +187,188 @@ def random_lanes(num_workflows: int, num_events: int, seed: int) -> np.ndarray:
         batch_first = np.where(last, e + 2, batch_first)
         prev_id = np.where(ev_id > 0, ev_id, prev_id)
     return out
+
+
+#: trap_corpus's row kinds, in the order rows cycle through them
+TRAP_KINDS = ("full_tables", "duplicate_keys", "run_reset", "fork", "sticky_error",
+              "history_at_kv")
+
+#: the tables, as (state prefix, key field, insert type, the lookups that
+#: close a key), as trap_corpus uses them
+_TRAP_TABLES = (
+    ("activities", "schedule_id", ET.ActivityTaskScheduled, ET.ActivityTaskCompleted),
+    ("timers", "timer_key", ET.TimerStarted, ET.TimerFired),
+    ("children", "initiated_id", ET.StartChildWorkflowExecutionInitiated,
+     ET.ChildWorkflowExecutionCompleted),
+    ("cancels", "initiated_id", ET.RequestCancelExternalWorkflowExecutionInitiated,
+     ET.RequestCancelExternalWorkflowExecutionFailed),
+    ("signals", "initiated_id", ET.SignalExternalWorkflowExecutionInitiated,
+     ET.SignalExternalWorkflowExecutionFailed),
+)
+
+
+def trap_corpus(num_workflows: int, num_events: int, seed: int, layout=None):
+    """(carried state as {dotted field path: array}, [W, E, 18] int64 lanes):
+    the corner cases of kernel A's table and version-history storage,
+    deterministic in `seed`. Row i is of kind TRAP_KINDS[i % 6]:
+    - full_tables: every table full, or full but its last slot; the lanes
+      insert into one table (the last slot, then TABLE_OVERFLOW);
+    - duplicate_keys: two slots of each table share a key (the activities
+      also an activity key); the lanes start, cancel-request and close them
+      (each lookup selects both), then insert into the freed slots;
+    - run_reset: occupied tables, a FLAG_RUN_RESET event in the middle of the
+      lanes, then inserts and lookups of keys from before and after it;
+    - fork: branch 0 (or 1) holds a history and the other none; the lanes
+      fork-inherit it (or fail with BAD_FORK from an empty parent) and
+      switch the current branch;
+    - sticky_error: a row whose error is already set, under lanes that would
+      change it;
+    - history_at_kv: the current branch's history holds Kv items; the lanes
+      update its last item, then overflow it.
+    The events' ids continue the carried history; versions never drop."""
+    import torch
+
+    from ..core.checksum import DEFAULT_LAYOUT
+    from ..ops.convert import state_to_numpy
+    from ..ops.state import init_state
+
+    L = layout or DEFAULT_LAYOUT
+    rng = np.random.default_rng(seed)
+    W, E = num_workflows, num_events
+    with torch.no_grad():
+        st = state_to_numpy(init_state(W, L, "cpu"))
+    B, Kv = L.max_branches, L.max_version_history_items
+    caps = {"activities": L.max_activities, "timers": L.max_timers,
+            "children": L.max_children, "cancels": L.max_request_cancels,
+            "signals": L.max_signals}
+    lanes = np.zeros((W, E, NUM_LANES), dtype=np.int64)
+    lanes[:, :, LANE_EVENT_TYPE] = -1
+
+    def occupy(i, table, slot, key, akey=None):
+        st[f"{table}.occ"][i, slot] = True
+        for f in (f for f in st if f.startswith(table + ".") and st[f].dtype == np.int64):
+            st[f][i, slot] = rng.integers(1, 1000)
+        st[f"{table}.{dict((t, k) for t, k, _, _ in _TRAP_TABLES)[table]}"][i, slot] = key
+        if table == "activities":
+            st["activities.activity_key"][i, slot] = key if akey is None else akey
+            st["activities.started_id"][i, slot] = -23  # EMPTY_EVENT_ID: not started
+
+    for i in range(W):
+        kind = TRAP_KINDS[i % len(TRAP_KINDS)]
+        # a carried branch-0 history: ids 1, 3, 5, ..., versions nondecreasing
+        n0 = int(rng.integers(1, Kv))
+        cb = 0
+        if kind == "history_at_kv":
+            n0 = Kv
+            cb = int(rng.integers(0, B))
+        if kind == "fork" and B > 1 and rng.random() < 0.5:
+            cb = 1  # the history lives on branch 1, branch 0 is empty
+        ids = 1 + 2 * np.arange(n0)
+        vers = np.maximum.accumulate(rng.integers(1, 4, size=n0))
+        st["vh_event_ids"][i, cb, :n0] = ids
+        st["vh_versions"][i, cb, :n0] = vers
+        st["vh_count"][i, cb] = n0
+        st["current_branch"][i] = cb
+        st["state"][i] = 1  # Running
+        st["next_event_id"][i] = int(ids[-1]) + 1
+        v = int(vers[-1])
+        next_id = int(ids[-1]) + 1
+        events = []  # (type, a0, a1, branch, parent, flags, version)
+
+        def ev(etype, a0=0, a1=0, branch=cb, parent=cb, flags=0, version=None):
+            events.append((int(etype), a0, a1, branch, parent, flags,
+                           v if version is None else version))
+
+        if kind == "full_tables":
+            table, _, ins, _ = _TRAP_TABLES[int(rng.integers(0, len(_TRAP_TABLES)))]
+            k = caps[table]
+            for t, _, _, _ in _TRAP_TABLES:
+                for s in range(caps[t]):
+                    occupy(i, t, s, int(rng.integers(1, 1 << 30)))
+            if rng.random() < 0.5:  # full but the last slot
+                st[f"{table}.occ"][i, k - 1] = False
+            ev(ET.WorkflowExecutionSignaled)
+            for _ in range(3):
+                ev(ins, int(rng.integers(1, 100)), int(rng.integers(1, 100)))
+        elif kind == "duplicate_keys":
+            keys = {}
+            for t, _, _, _ in _TRAP_TABLES:
+                slots = rng.choice(caps[t], size=min(caps[t], 4), replace=False)
+                keys[t] = int(rng.integers(1, 1 << 30))
+                akey = int(rng.integers(1, 7))
+                for j, s in enumerate(slots):
+                    key = keys[t] if j < 2 else int(rng.integers(1, 1 << 30))
+                    occupy(i, t, int(s), key, akey if j < 2 else akey + 10)
+                keys[t + ".akey"] = akey
+            ev(ET.ActivityTaskCancelRequested, keys["activities.akey"])
+            ev(ET.ActivityTaskStarted, keys["activities"])
+            ev(ET.ActivityTaskCompleted, keys["activities"])
+            ev(ET.TimerFired, keys["timers"])
+            ev(ET.ChildWorkflowExecutionStarted, keys["children"])
+            ev(ET.ChildWorkflowExecutionCompleted, keys["children"])
+            ev(ET.RequestCancelExternalWorkflowExecutionFailed, keys["cancels"])
+            ev(ET.SignalExternalWorkflowExecutionFailed, keys["signals"])
+            for _, _, ins, _ in _TRAP_TABLES:
+                ev(ins, int(rng.integers(1, 7)), int(rng.integers(1, 100)))
+        elif kind == "run_reset":
+            old = {}
+            for t, _, _, _ in _TRAP_TABLES:
+                for s in rng.choice(caps[t], size=min(caps[t], 3), replace=False):
+                    old[t] = int(rng.integers(1, 1 << 30))
+                    occupy(i, t, int(s), old[t])
+            ev(ET.ActivityTaskStarted, old["activities"])
+            ev(ET.TimerStarted, 5, 60)
+            at = int(rng.integers(2, max(3, E // 2)))
+            while len(events) < at:
+                ev(ET.WorkflowExecutionSignaled)
+            # the new run: ids restart at 1 on an empty history
+            events.append((int(ET.WorkflowExecutionStarted), 0, 0, 0, 0, FLAG_RUN_RESET, v))
+            ev(ET.ActivityTaskScheduled, 3, 9, branch=0, parent=0)
+            ev(ET.TimerStarted, 5, 60, branch=0, parent=0)
+            if rng.random() < 0.5:  # a key from before the reset is gone
+                table, _, _, close = _TRAP_TABLES[int(rng.integers(0, len(_TRAP_TABLES)))]
+                ev(close, old[table], branch=0, parent=0)
+            else:
+                ev(ET.TimerFired, 5, branch=0, parent=0)
+        elif kind == "fork":
+            other = 1 - cb if B > 1 else cb
+            empty_parent = rng.random() < 0.2
+            ev(ET.WorkflowExecutionSignaled)
+            ev(ET.WorkflowExecutionSignaled, branch=other, parent=other if empty_parent else cb,
+               version=v + 1)
+            ev(ET.WorkflowExecutionSignaled, branch=other, parent=cb, version=v + 2)
+            ev(ET.ActivityTaskScheduled, 4, 4, branch=other, parent=cb, version=v + 2)
+            ev(ET.WorkflowExecutionSignaled, branch=cb, parent=cb, version=v + 3)
+        elif kind == "sticky_error":
+            st["error"][i] = int(rng.integers(1, 15))
+            for t, _, ins, _ in _TRAP_TABLES:
+                ev(ins, 2, 2)
+            ev(ET.WorkflowExecutionSignaled, version=v + 1)
+        else:  # history_at_kv
+            ev(ET.WorkflowExecutionSignaled)           # the same version: updates the last item
+            ev(ET.ActivityTaskScheduled, 1, 1)
+            ev(ET.WorkflowExecutionSignaled, version=v + 1)  # a new item: VERSION_HISTORY_OVERFLOW
+        # the rest of the lanes: signals on the first event's branch, at the
+        # highest version used
+        top = max(e[6] for e in events)
+        while len(events) < E:
+            ev(ET.WorkflowExecutionSignaled, version=top)
+        ts = 1_700_000_000_000_000_000 + int(rng.integers(0, 10**9))
+        for e, (etype, a0, a1, branch, parent, flags, version) in enumerate(events[:E]):
+            if flags & FLAG_RUN_RESET:
+                next_id = 1
+            row = lanes[i, e]
+            row[LANE_EVENT_ID] = next_id
+            row[LANE_EVENT_TYPE] = etype
+            row[LANE_VERSION] = version
+            row[LANE_TIMESTAMP] = ts + e * 1_000_000_000
+            row[LANE_TASK_ID] = 1000 + e
+            row[LANE_BATCH_FIRST] = next_id
+            row[LANE_BATCH_LAST] = 1
+            row[LANE_A0] = a0
+            row[LANE_A0 + 1] = a1
+            row[LANE_BRANCH] = branch
+            row[LANE_PARENT] = parent
+            row[LANE_FLAGS] = flags
+            next_id += 1
+    return st, lanes

@@ -115,6 +115,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cadence_replay_wirec.restype = I
     # state pointer table, slab, bases, n_events, W, E, B, K, profile table, K[5], B, Kv, stream
     lib.cadence_replay_wirec.argtypes = [P, P, P, P, L, L, I, I, P, P, I, I, P]
+    # the same three on kernel A's global route (ops/replay.py replay_route)
+    for name in ("cadence_replay", "cadence_replay_tasks", "cadence_replay_wirec"):
+        getattr(lib, name + "_global").restype = I
+        getattr(lib, name + "_global").argtypes = getattr(lib, name).argtypes
     lib.cadence_decode_wirec.restype = I
     # slab, bases, n_events, out, W, E, B, K, profile table, stream
     lib.cadence_decode_wirec.argtypes = [P, P, P, P, L, L, I, I, P, P]
@@ -173,7 +177,10 @@ def check(rc: int, what: str) -> None:
 
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
-launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "payload": 0, "crc32": 0,
+#: (kernel A's global route counts under its own names: replay_global,
+#: replay_tasks_global, replay_wirec_global)
+launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "replay_global": 0,
+            "replay_tasks_global": 0, "replay_wirec_global": 0, "payload": 0, "crc32": 0,
             "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0,
             "gen_lanes": 0, "replay_gen": 0, "vis_mask": 0, "vis_topk": 0, "vis_apply": 0}
 

@@ -1,9 +1,16 @@
 """The batched replay entry points: apply every workflow's events, reduce
 to the canonical payload row, hash it, and compare.
 
-On the GPU the event loop is kernel A (csrc/replay.cu): one thread per
+On the GPU the event loop is kernel A (csrc/replay_kernel.cuh): one thread per
 workflow scans its events and updates its state in place; `replay_scan`
-updates the state in place on the CPU too. On the CPU the loop
+updates the state in place on the CPU too. Kernel A takes one of two
+routes, chosen here from the state's layout before the launch
+(`replay_route`): the staged route, which holds the tables' occupancy, the
+lookup keys and the version histories on the chip, for every table
+capacity up to CHIP_MAX_K; the global route, which reads them from device
+memory, for the rest (the ladder's rung 3 and up). Each route counts its
+launches under its own name (`_build.launches`: "replay", "replay_tasks",
+"replay_wirec"; "replay_global", ...). On the CPU the loop
 is `replay_scan_plain`, a Python loop of ops/transitions.step over the
 event axis (the JAX package's `lax.scan`). The wirec entry points do the
 same through `wirec_scan`: kernel A's wirec reader decodes each event in
@@ -44,6 +51,49 @@ from .taskgen import TaskLog, field_spec, init_task_log, retention_nanos, step_t
 from .transitions import step
 from .wirec import (check_profile, decode_step_plain, delta_base_columns, profile_table,
                     wirec_inputs)
+
+
+#: csrc/replay_tables.cuh: the most slots a table's occupancy mask holds;
+#: the workflows a staged block holds; (state.cuh) the most shared memory a
+#: block may have; the branches whose version history stays in registers
+CHIP_MAX_K = 64
+STAGED_WF = 32
+SMEM_LIMIT = 232448
+REG_BRANCHES = 2
+
+
+def staged_block(layout: PayloadLayout) -> Tuple[int, int]:
+    """(workflows a block, dynamic shared-memory bytes) of kernel A's staged
+    route at `layout`, as csrc/replay_kernel.cuh staged_block chooses them; (0, 0)
+    for a layout of the global route."""
+    if max(layout.max_activities, layout.max_timers, layout.max_children,
+           layout.max_request_cancels, layout.max_signals) > CHIP_MAX_K:
+        return 0, 0
+    keys = (2 * layout.max_activities + layout.max_timers + layout.max_children
+            + layout.max_request_cancels + layout.max_signals)
+    B = layout.max_branches
+    smem = STAGED_WF * (8 * keys + (20 * B if B > REG_BRANCHES else 0))
+    return (STAGED_WF, smem) if smem <= SMEM_LIMIT else (0, 0)
+
+
+def replay_route(layout: PayloadLayout) -> str:
+    """Kernel A's route at `layout`: "staged" (tables and version histories
+    on the chip) where the layout has a staged block, else "global"."""
+    return "staged" if staged_block(layout)[0] else "global"
+
+
+def launch_name(name: str, layout: PayloadLayout) -> str:
+    """The launch name (a key of _build.launches; its C entry point is
+    "cadence_" + it) of kernel A's `name` launch ("replay", "replay_tasks",
+    "replay_wirec") on the layout's route."""
+    return name if replay_route(layout) == "staged" else name + "_global"
+
+
+def _entry(name: str, layout: PayloadLayout):
+    """(launch name, C entry point) of kernel A's `name` launch on the
+    layout's route."""
+    name = launch_name(name, layout)
+    return name, getattr(_build.load(), "cadence_" + name)
 
 
 def _lanes(events, dev: torch.device, dtype: torch.dtype, lanes: int) -> torch.Tensor:
@@ -111,7 +161,7 @@ def replay_launch(s: ReplayState, events: torch.Tensor, wire32: bool = False):
     _build.require(events, dtype, (W, events.shape[1], lanes), "events", dev)
     lay = layout_of(s)
     return _build.launcher(
-        "replay", _build.load().cadence_replay, _build.state_pointer_table(s),
+        *_entry("replay", lay), _build.state_pointer_table(s),
         events, W, events.shape[1], int(wire32), _build.caps(lay), lay.max_branches,
         lay.max_version_history_items, _build.stream_of(events))
 
@@ -232,7 +282,7 @@ def replay_tasks_launch(s: ReplayState, log: TaskLog, events: torch.Tensor,
         _build.require(t, *field_spec(name, W, Tt, Tm), f"log.{name}", dev)
     lay = layout_of(s)
     launch = _build.launcher(
-        "replay_tasks", _build.load().cadence_replay_tasks, _build.state_pointer_table(s),
+        *_entry("replay_tasks", lay), _build.state_pointer_table(s),
         (ctypes.c_uint64 * len(log))(*(t.data_ptr() for t in log)), events, W,
         events.shape[1], int(wire32), _build.caps(lay), lay.max_branches,
         lay.max_version_history_items, Tt, Tm, retention, _build.stream_of(events))
@@ -308,7 +358,7 @@ def wirec_launch(s: ReplayState, slab: torch.Tensor, bases: torch.Tensor,
     check_profile(tuple(profile), B, K)
     lay = layout_of(s)
     return _build.launcher(
-        "replay_wirec", _build.load().cadence_replay_wirec, _build.state_pointer_table(s),
+        *_entry("replay_wirec", lay), _build.state_pointer_table(s),
         slab, bases, n_events, W, E, B, K, profile_table(profile), _build.caps(lay),
         lay.max_branches, lay.max_version_history_items, _build.stream_of(slab))
 

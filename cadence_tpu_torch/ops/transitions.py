@@ -6,7 +6,7 @@ update is computed for all workflows and blended by event-type masks;
 pending-map operations are masked insert/delete/update on fixed-capacity
 [W, K] tables. It runs on any device and is what the CPU takes; on the
 GPU the replay scan goes through the hand-written kernel in
-csrc/replay.cu (ops/replay.py), which this function is held against.
+csrc/replay_kernel.cuh (ops/replay.py), which this function is held against.
 
 Error semantics: conditions that make the reference return an error set a
 sticky per-workflow error code and freeze that workflow's row; healthy rows

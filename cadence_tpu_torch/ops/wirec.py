@@ -30,7 +30,7 @@ JAX package's numpy code, so the packed bytes are the reference's. The
 device half decodes: `decode_wirec` is kernel E (csrc/wirec.cu) on the
 card and `decode_wirec_plain` on the CPU; `decode_step_plain` is the
 one-column decode that the plain replay scan (ops/replay.wirec_scan_plain)
-fuses into its loop, and kernel A's wirec reader (csrc/replay.cu) does
+fuses into its loop, and kernel A's wirec reader (csrc/replay_kernel.cuh) does
 the same per thread. The decode reproduces the JAX package's exactly,
 padding rows and the DELTA carry through them included.
 """

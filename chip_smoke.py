@@ -4,6 +4,10 @@
     python3 chip_smoke.py            # the full run, on one CUDA card
     python3 chip_smoke.py --small    # the same phases at a few thousand workflows
                                      # (the north star at 16,384 x 200)
+    python3 chip_smoke.py --shapes-only  # the suites corpus, the build,
+                                     # kernel_launch_shapes and kernel_replay_traps
+    python3 chip_smoke.py --parent DIR [--variants]  # also time another checkout's
+                                     # kernels A and B (and VARIANTS) in kernel_launch_shapes
 
 Phases, one JSON line each:
   1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
@@ -58,6 +62,17 @@ Phases, one JSON line each:
      chunk that fills the card, and at each of its block shapes (1 or 2
      threads a workflow) at both, beside the bound; the registers and
      spills ptxas reports for its instances and for kernel A's.
+     kernel_launch_shapes: kernel A's five instances and kernel B at the
+     shapes the driven paths launch them with (serving flushes W in {8, 64,
+     128} x 16 and 64 x 32 from carried states, held to the plain version;
+     the 4,096 x 123 chunk; the 40,960 x 123 bulk; B at 64, 4,096 and
+     40,960), each beside its bound and the launch floor (a one-element
+     add_ timed the same way); with --parent DIR and --variants, other
+     builds on the same arguments, held equal and timed in the same call.
+     kernel_replay_traps: kernel A (every reader, with and without tasks)
+     and kernel B against their plain versions on gen/lanes.py
+     trap_corpus states at x1, x2, x4 and x8 and random lanes at x8, every
+     launch of a layout on the route ops/replay.py replay_route gives it.
   3b. north_star, configuration ns-1m (BASELINE.md's north star, bench.py's
      _north_star): 1,000,000 workflows rounded up to whole chunks x 1,000
      events, seed 20260730, through generate_and_replay_sharded_crc over a
@@ -166,6 +181,7 @@ once.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import random
@@ -258,8 +274,13 @@ TOPK_FUNCTIONS = ("topk_scan_kernel", "topk_hist_kernel", "topk_compact_kernel",
                   "bitonic_global_kernel")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    """One JSON line for a phase, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _T0},
+                     default=float), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -545,12 +566,16 @@ def generate(args):
                  for s, n in _chunks(args.verify_per_suite, 512)])
     stasks = [(suite, s, n) for suite in SERVING_SUITES
               for s, n in _chunks(args.serving_per_suite, 256)]
+    if args.shapes_only:  # the suites alone
+        otasks = ctasks = ttasks = vtasks = rtasks = stasks = []
     ns_rng = np.random.default_rng(SEED + 6)
     ntasks = [(int(b) * NS_BLOCK, NS_BLOCK, args.ns_events)
               for b in sorted(ns_rng.choice(GEN_CHECK_W // NS_BLOCK, NS_BLOCKS, replace=False))]
     native_sample = sorted(int(i) for i in ns_rng.choice(NATIVE_GEN_W, NATIVE_GEN_SAMPLE,
                                                          replace=False))
     gtasks = [(native_sample[k::8], args.ns_events) for k in range(8)]
+    if args.shapes_only:
+        ntasks = gtasks = []
 
     from cadence_tpu_torch.native.build import load_generator
 
@@ -571,8 +596,10 @@ def generate(args):
     return {
         "histories": histories, "oracle": oracle,
         "overflow": over_h, "overflow_oracle": over_oracle,
-        "chains": np.stack(chain_lanes), "chain_oracle": chain_oracle,
-        "trees": np.stack([x for part in tree_parts for x in part]),
+        "chains": np.stack(chain_lanes) if chain_lanes else np.zeros((0, 1, 18), np.int64),
+        "chain_oracle": chain_oracle,
+        "trees": (np.stack([x for part in tree_parts for x in part]) if tree_parts
+                  else np.zeros((0, 1, 18), np.int64)),
         "verify_states": [ms for part in state_parts for ms in part],
         "cut_states": [ms for part in cut_parts for ms in part],
         "serving": [w for part in serving_parts for w in part],
@@ -658,12 +685,12 @@ def task_bytes_ops(events, log):
     return nbytes, ops
 
 
-def ptxas_usage(build_log: str, kernel: str) -> dict:
+def ptxas_usage(build_log: str, kernel, *more) -> dict:
     """Registers and spill bytes nvcc reported for the kernel whose mangled
-    name contains `kernel`."""
+    name contains `kernel` and each of `more`."""
     lines = build_log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        if "Compiling entry function" in line and all(k in line for k in (kernel,) + more):
             out = {}
             for nxt in lines[i + 1:i + 5]:
                 if "Compiling entry function" in nxt:
@@ -1103,6 +1130,22 @@ def serving_path(args, corp):
         flushes.append((time.perf_counter() - t0, sum(1 + i.coalesced for i in batch)))
 
     sched._flush = timed_flush
+    # the shapes kernels A and B are launched with: each suffix flush's
+    # append groups (W, E) and each cold admit's padded corpus (Wp, E)
+    append_shapes, cold_shapes = collections.Counter(), collections.Counter()
+    append_report, cold_launch = engine.resident.replay_append_report, sched._cold_launch
+
+    def counted_append(*a, **k):
+        results, report = append_report(*a, **k)
+        append_shapes.update(report.chunk_shapes)
+        return results, report
+
+    def counted_cold(corpus, device):
+        cold_shapes[tuple(corpus.shape[:2])] += 1
+        return cold_launch(corpus, device)
+
+    engine.resident.replay_append_report = counted_append
+    sched._cold_launch = counted_cold
     tickets = [[] for _ in keys]
     #: the expected row and branch of each workflow's last submitted
     #: transaction
@@ -1198,7 +1241,9 @@ def serving_path(args, corp):
          escalations=sum(r.escalated for r in results),
          not_ok=sum(not r.ok for r in results), parity_divergence=stats["parity_divergence"],
          resident_checked=len(resident), resident_pool=pool_stats(engine.resident),
-         launches=launches)
+         launches=launches,
+         append_shapes={f"{w}x{e}": n for (w, e), n in sorted(append_shapes.items())},
+         cold_shapes={f"{w}x{e}": n for (w, e), n in sorted(cold_shapes.items())})
     return launches
 
 
@@ -1750,9 +1795,7 @@ def gen_kernels(args, corp, dev, records):
     sb_fill = sb // W * fill
     regs_g = {f"tpw{t}": ptxas_usage(_build.build_log, f"replay_gen_kernelILi{t}E")
               for t in (1, 2)}
-    regs_a = {name: ptxas_usage(_build.build_log, f"replay_kernelILi{r}ELb{b}E")
-              for name, r, b in (("int64", 0, 0), ("wire32", 1, 0), ("wirec", 2, 0),
-                                 ("int64_tasks", 0, 1), ("wire32_tasks", 1, 1))}
+    regs_a = a_ptxas(_build.build_log)
     records.append(kernel_record(
         "replay_gen", "cadence_tpu_torch/csrc/replay_gen.cu", "cadence_tpu/ops/genkernel.py:332",
         None, err_g, ms_g, ms_gp, sb, ops_w,
@@ -1861,6 +1904,437 @@ def gen_inline_draws(want, E: int, widths, tpws) -> dict:
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Kernels A and B at the shapes their launches have, beside a parent build
+# ---------------------------------------------------------------------------
+
+#: (W, E) of kernel A's serving flushes (engine/resident.py _append_group's
+#: buckets: W a power of two from 8, E from 16), each replayed from a
+#: carried state; the resident and verify chunk; the bulk (suites-8k)
+FLUSH_SHAPES = ((8, 16), (64, 16), (128, 16), (64, 32))
+CHUNK_W = 4096
+#: the C entry point each launch name calls (the parent commit has the same
+#: signatures)
+ENTRY = {"replay": "cadence_replay", "replay_tasks": "cadence_replay_tasks",
+         "replay_wirec": "cadence_replay_wirec", "payload": "cadence_payload"}
+
+
+def build_entries(csrc: str, sources, subs=()):
+    """Build `sources` (file names in the kernel directory `csrc`) into one
+    library with nvcc, side by side, after the text substitutions `subs`
+    ((file, old, new) each; `old` must occur); returns (the library, its
+    ptxas log). The entry points' argument types are the port's own. Used
+    to time the parent commit's kernels and variants of this tree's beside
+    the port's, never by the port."""
+    import ctypes
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cadence_tpu_torch.device import nvcc_path
+    from cadence_tpu_torch.ops import _build
+
+    os.makedirs(_build._BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build._BUILD_DIR)
+    try:
+        src = os.path.join(tmp, "csrc")
+        shutil.copytree(csrc, src, ignore=shutil.ignore_patterns("_build"))
+        for name, old, new in subs:
+            path = os.path.join(src, name)
+            text = open(path).read()
+            if old not in text:
+                fail(f"build_entries: {name} no longer has {old!r}")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        objs = [os.path.join(tmp, s + ".o") for s in sources]
+        cmds = [[nvcc_path(), _build._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c", "-o", o, os.path.join(src, s)]
+                for s, o in zip(sources, objs)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            logs = [out for out, _ in pool.map(_build._run, cmds)]
+        so = os.path.join(tmp, "entries.so")
+        _build._run([nvcc_path(), _build._ARCH, "-shared", "-o", so] + objs)
+        lib = ctypes.CDLL(so)
+        port = _build.load()
+        for entry in ENTRY.values():
+            if hasattr(lib, entry):
+                getattr(lib, entry).restype = ctypes.c_int
+                getattr(lib, entry).argtypes = getattr(port, entry).argtypes
+        return lib, "\n".join(logs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)  # the loaded library stays mapped
+
+
+def rebind(launch, lib, name: str):
+    """The launch `launch` (a port wrapper's, kernel `name`) as a call of
+    `lib`'s entry point with the same arguments. It counts no launch."""
+    import torch
+
+    from cadence_tpu_torch.ops import _build
+
+    fn = getattr(lib, ENTRY[name])
+    c_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in launch.args)
+
+    def go():
+        _build.check(fn(*c_args), f"{name} ({lib._name})")
+
+    go.launch = launch  # the tensors its pointers point into
+    return go
+
+
+def carried_split(lanes, idx, tail: int):
+    """(prefix, suffix) lanes of the workflows `idx` of [W, E, 18] `lanes`:
+    each workflow's last `tail` real events (or all of them, when it has
+    fewer) in the suffix, the rest in the prefix, both padded with id-0
+    rows."""
+    import numpy as np
+
+    ev = lanes[idx]
+    n = (ev[:, :, 0] > 0).sum(1)
+    cut = np.maximum(n - tail, 0)
+    pre = np.zeros((len(idx), max(1, int(cut.max())), ev.shape[2]), dtype=ev.dtype)
+    suf = np.zeros((len(idx), tail, ev.shape[2]), dtype=ev.dtype)
+    for i in range(len(idx)):
+        pre[i, :cut[i]] = ev[i, :cut[i]]
+        suf[i, :n[i] - cut[i]] = ev[i, cut[i]:n[i]]
+    return pre, suf
+
+
+def outputs_equal(a, b, what: str) -> None:
+    """Two launches' outputs (states, task logs, tensors) are equal."""
+    import torch
+
+    from cadence_tpu_torch.ops.state import ReplayState
+    from cadence_tpu_torch.ops.taskgen import TaskLog
+
+    for x, y in zip(a, b):
+        if isinstance(x, ReplayState):
+            states_equal(x, y, what)
+        elif isinstance(x, TaskLog):
+            logs_equal(x, y, what)
+        elif not torch.equal(x, y):
+            fail(f"{what}: outputs differ")
+
+
+def kept(launch, *outputs):
+    """(launch, outputs), the launch holding the outputs its pointers point
+    into."""
+    launch.keep = outputs
+    return launch, outputs
+
+
+def launch_shapes(events_np, dev, variants=()) -> dict:
+    """Phase kernel_launch_shapes: kernel A (each reader, with and without
+    tasks) and kernel B timed at the shapes the driven paths launch them
+    with, each beside its bound and the launch floor (a one-element add_
+    timed the same way). Each of `variants` ((name, library from
+    build_entries)) runs the same arguments and must give the same outputs;
+    a variant named "parent" (the parent commit's kernels) is timed in
+    turns parent, change, change, parent, the others after the change.
+    Every launch runs on fresh copies of its inputs. Returns the phase's
+    record."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.native import wirec as NW
+    from cadence_tpu_torch.ops import replay as R
+    from cadence_tpu_torch.ops.encode import to_wire32
+    from cadence_tpu_torch.ops.payload import payload_launch
+    from cadence_tpu_torch.ops.state import init_state, map_state
+    from cadence_tpu_torch.ops.taskgen import init_task_log
+
+    launch = lambda run: run()  # noqa: E731
+    clone = lambda s: map_state(lambda t: t.clone(), s)  # noqa: E731
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda _: one.add_(1))
+    variants = list(variants)
+    parent = dict(variants).get("parent")
+    shapes = {}
+
+    def timed(key, name, make, nbytes, ops, check=None):
+        """Time make()'s launch (and each variant's on its arguments),
+        after holding every variant's outputs equal to the port's and the
+        port's to `check`'s, when given."""
+        want, want_out = make()
+        want()
+        if check is not None:
+            outputs_equal(want_out, check, f"{key}: kernel against its plain version")
+        for who, lib in variants:
+            got, got_out = make()
+            rebind(got, lib, name)()
+            outputs_equal(got_out, want_out, f"{key}: {who} against the port")
+        other = lambda lib: lambda: rebind(make()[0], lib, name)  # noqa: E731
+        runs = {}
+        if parent is not None:
+            runs["parent"] = [cuda_ms(launch, setup=other(parent))]
+        runs["change"] = [cuda_ms(launch, setup=lambda: make()[0])
+                          for _ in range(2 if parent is not None else 1)]
+        for who, lib in variants:
+            runs.setdefault(who, []).append(cuda_ms(launch, setup=other(lib)))
+        rec = {"kernel": name, "ms": {who: statistics.mean(v) for who, v in runs.items()},
+               "runs": runs, "bound_ms": bound_ms(nbytes, ops), "floor_ms": floor}
+        shapes[key] = rec
+        emit("kernel_launch_shape", shape=key, **rec)
+
+    def readers(tag, s0, ev, suf, E, plain=None):
+        """Kernel A's readers at one shape from state s0 (fresh or carried):
+        int64, wire32, wirec, and with tasks on int64 and wire32 lanes.
+        Returns the int64 reader's final state."""
+        W = ev.shape[0]
+        sb = state_bytes(s0)
+        final = R.replay_scan(clone(s0), ev)
+        if plain is not None:
+            states_equal(final, plain, f"replay {tag}: kernel against its plain version")
+        timed(f"replay {tag}", "replay", lambda: kept(R.replay_launch(s := clone(s0), ev), s),
+              ev.numel() * 8 + sb, replay_ops(ev))
+        ev32 = torch.from_numpy(to_wire32(suf)).to(dev)
+        timed(f"replay wire32 {tag}", "replay",
+              lambda: kept(R.replay_launch(s := clone(s0), ev32, wire32=True), s),
+              ev32.numel() * 4 + sb, replay_ops(ev), check=(final,))
+        wc = NW.pack_wirec_auto(suf)
+        parts = NW.stage_corpus(wc, dev)
+        wplain = None if plain is None else (R.wirec_scan_plain(s0, *parts, wc.profile),)
+        timed(f"replay_wirec {tag}", "replay_wirec",
+              lambda: kept(R.wirec_launch(s := clone(s0), *parts, wc.profile), s),
+              sum(t.numel() * t.element_size() for t in parts) + sb,
+              replay_ops(ev) + decode_ops(wc.profile, W * E), check=wplain)
+        for lanes, wire32, t in ((ev, False, ""), (ev32, True, " wire32")):
+            fresh_log = lambda: init_task_log(W, 128, 128, dev)  # noqa: E731
+            s_t, log_t = R.replay_tasks_scan(clone(s0), fresh_log(), lanes, wire32)
+            tplain = None if plain is None else R.replay_tasks_scan_plain(s0, fresh_log(), lanes,
+                                                                          wire32)
+            t_bytes, t_ops = task_bytes_ops(ev, log_t)
+
+            def make_t():
+                s, log = clone(s0), fresh_log()
+                return kept(R.replay_tasks_launch(s, log, lanes, wire32), s, log)
+
+            timed(f"replay_tasks{t} {tag}", "replay_tasks", make_t,
+                  lanes.numel() * lanes.element_size() + sb + t_bytes, replay_ops(ev) + t_ops,
+                  check=tplain)
+            del s_t, log_t
+        return final
+
+    W_all = events_np.shape[0]
+    finals = {}
+    # the serving flush shapes, from carried states: every reader at 64 x 16
+    for Wf, Ef in FLUSH_SHAPES:
+        idx = np.linspace(0, W_all - 1, Wf).astype(np.int64)
+        pre, suf = carried_split(events_np, idx, Ef)
+        s0 = R.replay_scan(init_state(Wf, L, dev), torch.from_numpy(pre).to(dev))
+        ev = torch.from_numpy(suf).to(dev)
+        plain = R.replay_scan_plain(s0, ev)
+        tag = f"{Wf}x{Ef} carried"
+        if (Wf, Ef) == (64, 16):
+            finals[Wf] = readers(tag, s0, ev, suf, Ef, plain)
+        else:
+            states_equal(R.replay_scan(clone(s0), ev), plain, f"replay {tag}")
+            timed(f"replay {tag}", "replay",
+                  lambda: kept(R.replay_launch(s := clone(s0), ev), s),
+                  ev.numel() * 8 + state_bytes(s0), replay_ops(ev))
+    # the resident and verify chunk and the bulk, from fresh states
+    for Wc in (CHUNK_W, W_all):
+        sub = events_np[:Wc]
+        ev = torch.from_numpy(sub).to(dev)
+        finals[Wc] = readers(f"{Wc}x{sub.shape[1]}", init_state(Wc, L, dev), ev, sub,
+                             sub.shape[1])
+        del ev
+    # kernel B at a flush, a chunk and the bulk, on those final states
+    for Wb in (64, CHUNK_W, W_all):
+        s = finals[Wb]
+
+        def make_b():
+            run, rows, overflow = payload_launch(s, L)
+            return kept(run, rows, overflow)
+
+        nbytes, ops = payload_bytes_ops(Wb, L)
+        timed(f"payload {Wb}", "payload", make_b, nbytes, ops)
+    torch.cuda.empty_cache()
+    return {"floor_ms": floor, "shapes": shapes}
+
+
+#: variants of this tree's kernels, built by text substitution and timed
+#: beside the port's in kernel_launch_shapes: name -> ((file, old, new), ...):
+#: kernel A's staged route without its lanes loaded an event ahead, with the
+#: wirec reader's register cap on every reader, and with blocks of 64
+#: workflows; kernel B with blocks of 16 workflows, and of 128 threads. Built
+#: and timed with --variants
+VARIANTS = {
+    "no_prefetch": (("replay_kernel.cuh", "constexpr bool PREFETCH_LANES = true;",
+                     "constexpr bool PREFETCH_LANES = false;"),),
+    "bounds_all_readers": (("replay_kernel.cuh", "READER == READ_WIREC ? Tables::MIN_BLOCKS : 1",
+                            "Tables::MIN_BLOCKS"),),
+    "block64": (("replay_tables.cuh", "constexpr int STAGED_WF = 32;",
+                 "constexpr int STAGED_WF = 64;"),),
+    "payload_wf16": (("payload.cu", "constexpr int PAYLOAD_MAX_WF = 32;",
+                      "constexpr int PAYLOAD_MAX_WF = 16;"),),
+    "payload_threads128": (("payload.cu", "constexpr int PAYLOAD_THREADS = 256;",
+                            "constexpr int PAYLOAD_THREADS = 128;"),),
+}
+#: kernel A's instances, by reader, tasks and route (mangled-name parts
+#: for ptxas_usage)
+A_INSTANCES = {f"{reader}{'_tasks' if t else ''} {route}": (
+    f"replay_kernelILi{r}ELb{t}E", policy, *extra)
+    for reader, r, tasks in (("int64", 0, (0, 1)), ("wire32", 1, (0, 1)), ("wirec", 2, (0,)))
+    for t in tasks
+    for route, policy, extra in (("staged", "ChipTables", ("RegBranches",)),
+                                 ("staged_shared", "ChipTables", ("SharedBranches",)),
+                                 ("global", "GlobalTables", ()))}
+
+
+def a_ptxas(build_log: str) -> dict:
+    """Registers and spills of every instance of kernel A in a build log."""
+    return {name: ptxas_usage(build_log, *parts) for name, parts in A_INSTANCES.items()}
+
+
+def launch_shapes_phase(args, events_np, dev, records) -> None:
+    """Build the parent commit's kernels A and B (with --parent) and this
+    tree's VARIANTS (with --variants), run launch_shapes, emit its record and
+    add the times to kernels A's and B's records."""
+    from cadence_tpu_torch.ops import _build
+
+    builds = []
+    if args.parent:
+        builds.append(("parent", os.path.join(args.parent, "cadence_tpu_torch", "csrc"), ()))
+    if args.variants:
+        builds += [(name, _build._CSRC, subs) for name, subs in VARIANTS.items()]
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    def sources(csrc):  # kernel A's and B's files in that tree
+        return [f for f in sorted(os.listdir(csrc)) if f == "payload.cu"
+                or (f.startswith("replay") and f.endswith(".cu") and f != "replay_gen.cu")]
+
+    with ThreadPoolExecutor(max(1, len(builds))) as pool:
+        built = list(pool.map(lambda b: build_entries(b[1], sources(b[1]), b[2]), builds))
+    libs = [(name, lib) for (name, _, _), (lib, _) in zip(builds, built)]
+    ptxas = {name: {line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line}
+             for (name, _, _), (_, log) in zip(builds, built)}
+    t_build = time.perf_counter() - t0
+    out = launch_shapes(events_np, dev, libs)
+    emit("kernel_launch_shapes", floor_ms=out["floor_ms"], built=[n for n, _, _ in builds],
+         build_seconds=t_build, ptxas={n: sorted(v) for n, v in ptxas.items()},
+         ptxas_kernel_a=a_ptxas(_build.build_log),
+         ptxas_kernel_b=ptxas_usage(_build.build_log, "payload_kernel"),
+         ptxas_variants={name: a_ptxas(log) for (name, _, _), (_, log) in zip(builds, built)
+                         if name != "parent"})
+    for rec in records:
+        if rec["name"] in ("replay", "replay_tasks", "replay_wirec", "payload"):
+            rec["ms_at_launch_shapes"] = {k: v["ms"] for k, v in out["shapes"].items()
+                                          if v["kernel"] == rec["name"]}
+            rec["bound_ms_at_launch_shapes"] = {k: v["bound_ms"]
+                                                for k, v in out["shapes"].items()
+                                                if v["kernel"] == rec["name"]}
+            rec["launch_floor_ms"] = out["floor_ms"]
+
+
+#: trap_corpus's rows (a multiple of its six kinds) and events, and the
+#: layouts its states are held at: the base, rung 1, rung 2 (K = 64 for
+#: activities and timers, the mask's edge; B = 8 in shared memory) and x8
+#: (the global route)
+TRAP_W, TRAP_E = 6 * 64, 24
+TRAP_FACTORS = (1, 2, 4, 8)
+
+
+def replay_traps(dev) -> dict:
+    """Phase kernel_replay_traps: kernel A (int64, wire32 and wirec readers,
+    with tasks on int64 and wire32 lanes) and kernel B (at the state's own
+    layout and projected to the base one) held to their plain versions on
+    trap_corpus's carried states at each of TRAP_FACTORS, and on random lanes
+    from a fresh state at x8 (phase 4 runs them at x1 and x2); each layout's
+    launches must all take the route replay_route gives it."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT
+    from cadence_tpu_torch.gen.lanes import random_lanes, trap_corpus
+    from cadence_tpu_torch.native import wirec as NW
+    from cadence_tpu_torch.ops import _build, replay as R
+    from cadence_tpu_torch.ops.convert import state_from_numpy
+    from cadence_tpu_torch.ops.encode import to_wire32
+    from cadence_tpu_torch.ops.payload import payload_rows_narrow, payload_rows_narrow_plain
+    from cadence_tpu_torch.ops.state import init_state, map_state, widen_layout
+    from cadence_tpu_torch.ops.taskgen import init_task_log
+
+    clone = lambda s: map_state(lambda t: t.clone(), s)  # noqa: E731
+    out = {}
+    for factor in TRAP_FACTORS:
+        lay = widen_layout(DEFAULT_LAYOUT, factor)
+        st, ln = trap_corpus(TRAP_W, TRAP_E, SEED + factor, lay)
+        cases = {"traps": (state_from_numpy(st, dev), ln)}
+        if factor == 8:  # the paths the suites never reach, on the global route
+            lanes = random_lanes(512, 48, SEED + factor)
+            cases["random lanes"] = (init_state(len(lanes), lay, dev), lanes)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        overflow = 0
+        for what, (s0, ln) in cases.items():
+            tag = f"{what} at x{factor}"
+            ev = torch.from_numpy(ln).to(dev)
+            want = R.replay_scan_plain(s0, ev)
+            got = R.replay_scan(clone(s0), ev)
+            states_equal(got, want, f"replay {tag}")
+            try:
+                ev32 = torch.from_numpy(to_wire32(ln)).to(dev)
+            except OverflowError:  # the random lanes' timers wrap int32
+                ev32 = None
+            if ev32 is not None:
+                states_equal(R.replay_scan(clone(s0), ev32, wire32=True), want,
+                             f"replay wire32 {tag}")
+            wc = NW.pack_wirec_auto(ln)
+            parts = NW.stage_corpus(wc, dev)
+            states_equal(R.wirec_scan(clone(s0), *parts, wc.profile),
+                         R.wirec_scan_plain(s0, *parts, wc.profile), f"replay wirec {tag}")
+            for lanes_, wire32 in ((ev, False), (ev32, True)):
+                if lanes_ is None:
+                    continue
+                W = ev.shape[0]
+                ks, kl = R.replay_tasks_scan(clone(s0), init_task_log(W, 32, 32, dev), lanes_,
+                                             wire32)
+                ps, pl = R.replay_tasks_scan_plain(s0, init_task_log(W, 32, 32, dev), lanes_,
+                                                   wire32)
+                states_equal(ks, ps, f"replay with tasks {tag} (wire32 {wire32})")
+                logs_equal(kl, pl, f"replay with tasks {tag} (wire32 {wire32})")
+            for out_lay in (lay, DEFAULT_LAYOUT):
+                rk, ok = payload_rows_narrow(got, out_lay)
+                rp, op = payload_rows_narrow_plain(got, out_lay)
+                if max_abs_err(rk, rp) or max_abs_err(ok, op):
+                    fail(f"payload {tag} to width {out_lay.width}: kernel and plain version "
+                         "differ")
+                overflow += int(op.sum())
+            out[tag] = {"errors": np.bincount(want.error.cpu().numpy(), minlength=15).tolist()}
+        launches = dict(_build.launches)
+        route = R.replay_route(lay)
+        names = ("replay", "replay_tasks", "replay_wirec")
+        took = [R.launch_name(n, lay) for n in names]
+        other = [n for n in launches if n.startswith("replay") and n not in took
+                 and n != "replay_gen"]
+        if any(launches[n] == 0 for n in took) or any(launches[n] for n in other):
+            fail(f"traps at x{factor}: the launches {launches} are not all on the {route} "
+                 "route")
+        if factor > 1 and not overflow:
+            fail(f"traps at x{factor}: no row overflows the base payload")
+        out[f"x{factor}"] = {"route": route, "block": R.staged_block(lay),
+                             "launches": {n: launches[n] for n in took + ["payload"]},
+                             "base_overflow_rows": overflow}
+    emit("kernel_replay_traps", workflows=TRAP_W, events=TRAP_E, **out)
+    return out
+
+
+def payload_bytes_ops(W: int, L):
+    """Kernel B's bound at W workflows of layout L: the scalars, the
+    current branch's version-history row, each table's occupancy and IDs
+    read once, the rows and flags written once; 3 K^2 compares a table."""
+    kv = L.max_version_history_items
+    tables = (L.max_timers, L.max_activities, L.max_children, L.max_signals,
+              L.max_request_cancels)
+    nbytes = W * (10 * 8 + 4 + 1 + 4 + 4 + 2 * kv * 8 + sum(9 * k for k in tables)
+                  + L.width * 8 + 1)
+    return nbytes, W * sum(3 * k * k for k in tables)
 
 
 def north_star(args, corp, dev):
@@ -2057,6 +2531,14 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--small", action="store_true",
                    help="run every phase at a few thousand workflows")
+    p.add_argument("--parent", metavar="DIR",
+                   help="the root of a checkout of another commit: its kernels A and B are "
+                        "built and timed beside this tree's in kernel_launch_shapes")
+    p.add_argument("--variants", action="store_true",
+                   help="build VARIANTS of this tree's kernels and time them beside the port's "
+                        "in kernel_launch_shapes")
+    p.add_argument("--shapes-only", action="store_true",
+                   help="run the suites corpus, the build and kernel_launch_shapes, and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
@@ -2123,6 +2605,11 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             print("ptxas:", line.strip(), flush=True)
+    if args.shapes_only:
+        launch_shapes_phase(args, encode_corpus(histories), dev, [])
+        replay_traps(dev)
+        print(smi)
+        return 0
 
     # --- 2. the main path (suites-8k)
     t0 = time.perf_counter()
@@ -2249,7 +2736,7 @@ def main() -> int:
     ms_ap32 = cuda_ms(lambda s: R.replay_scan_plain(s, ev32, wire32=True), 3, setup=fresh)
     sb = state_bytes(s_k)
     records.append(kernel_record(
-        "replay", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/transitions.py:154",
+        "replay", "cadence_tpu_torch/csrc/replay_kernel.cuh", "cadence_tpu/ops/transitions.py:154",
         None, err_a, ms_a, ms_ap, ev.numel() * 8 + sb, replay_ops(ev),
         ms_wire32=ms_a32, plain_ms_wire32=ms_ap32,
         bound_ms_wire32=(ev32.numel() * 4 + sb) / HBM_BYTES_PER_S * 1e3,
@@ -2296,14 +2783,14 @@ def main() -> int:
     ms_fill = cuda_ms(lambda _: fresh_log(), inner=5)
     t_bytes, t_ops = task_bytes_ops(ev, log_t)
     log_bytes = sum(t.numel() * t.element_size() for t in log_t)
-    regs = ptxas_usage(_build.build_log, "replay_kernelILi0ELb1E")
+    regs = ptxas_usage(_build.build_log, *A_INSTANCES["int64_tasks staged"])
     records.append(kernel_record(
-        "replay_tasks", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/taskgen.py:221",
+        "replay_tasks", "cadence_tpu_torch/csrc/replay_kernel.cuh", "cadence_tpu/ops/taskgen.py:221",
         None, err_t, ms_t, ms_tp, ev.numel() * 8 + sb + t_bytes, replay_ops(ev) + t_ops,
         hook="cadence_tpu_torch/csrc/taskgen.cuh", no_tasks_ms=ms_a,
         init_task_log_ms=ms_fill, init_task_log_bound_ms=log_bytes / HBM_BYTES_PER_S * 1e3,
         transfer_entries=int(log_t.tr_count.sum()), timer_entries=int(log_t.tm_count.sum()),
-        ptxas=regs, ptxas_no_tasks=ptxas_usage(_build.build_log, "replay_kernelILi0ELb0E"),
+        ptxas=regs, ptxas_no_tasks=ptxas_usage(_build.build_log, *A_INSTANCES["int64 staged"]),
         timed=f"median of {REPS} single launches, each on a fresh state and log; "
               f"plain: median of {PLAIN_REPS}"))
     emit("kernel_replay_tasks", equal_states=66, equal_log_tensors=12, wire32_equal=True,
@@ -2331,14 +2818,9 @@ def main() -> int:
         (s_k.cancels, s_k.cancels.initiated_id))]
     ms_sort = cuda_ms(lambda _: [torch.sort(m, dim=1) for m in masked], inner=20)
     L = DEFAULT_LAYOUT
-    kv, b = L.max_version_history_items, L.max_branches
-    tables = [(L.max_timers, 9), (L.max_activities, 9), (L.max_children, 9),
-              (L.max_signals, 9), (L.max_request_cancels, 9)]
-    b_read = W * (10 * 8 + 4 + 1 + 4 + 4 + 2 * kv * 8 + sum(k * bpk for k, bpk in tables))
-    b_ops = W * sum(3 * k * k for k, _ in tables)
     records.append(kernel_record(
         "payload", "cadence_tpu_torch/csrc/payload.cu", "cadence_tpu/ops/payload.py:36",
-        None, err_b, ms_b, ms_bp, b_read + W * (L.width * 8 + 1), b_ops,
+        None, err_b, ms_b, ms_bp, *payload_bytes_ops(W, L),
         yardstick="torch.sort of the five masked ID tables", yardstick_ms=ms_sort))
     emit("kernel_payload", max_abs_err=err_b, ms=ms_b, plain_ms=ms_bp, torch_sort_ms=ms_sort)
 
@@ -2485,7 +2967,7 @@ def main() -> int:
                      setup=fresh)
     wirec_in = slab_d.numel() + bases_d.numel() * 8 + n_d.numel() * 4
     records.append(kernel_record(
-        "replay_wirec", "cadence_tpu_torch/csrc/replay.cu", "cadence_tpu/ops/replay.py:121",
+        "replay_wirec", "cadence_tpu_torch/csrc/replay_kernel.cuh", "cadence_tpu/ops/replay.py:121",
         None, err_aw, ms_aw, ms_awp, wirec_in + sb, replay_ops(ev) + decode_ops(prof, W * E),
         events_per_s=real / (ms_aw / 1e3), int64_ms=ms_a,
         timed=f"median of {REPS} single launches, each on a fresh state; "
@@ -2514,6 +2996,10 @@ def main() -> int:
     emit("kernel_decode_wirec", max_abs_err=err_e, equal_to_lanes=True, ms=ms_e, plain_ms=ms_ep)
     del s_k, s_p, s_k32, s_kw, wide, ev, ev32, d_k, slab_d, bases_d, n_d
     torch.cuda.empty_cache()
+
+    # kernels A and B at the shapes their launches have, and on their traps
+    launch_shapes_phase(args, events_np, dev, records)
+    replay_traps(dev)
 
     # kernel I and kernel A's generator reader
     gen_kernels(args, corp, dev, records)

@@ -97,3 +97,30 @@ def test_replay_to_crc(suite):
     assert np.array_equal(err.numpy(), err_j)
     if suite == "overflow":
         assert (err_j != 0).any()
+
+
+@pytest.mark.parametrize("factor", [1, 2])
+@pytest.mark.parametrize("replayed", [False, True])
+def test_payload_rows_narrow_on_trap_states(factor, replayed):
+    """Kernel B's plain version on trap_corpus's states (full tables,
+    duplicate keys, a run reset, forks, sticky errors, a history at Kv),
+    carried or replayed by the JAX package, projected to the base layout,
+    equals the JAX package's rows and flags; from rung 1 some rows' final
+    counts exceed the base capacities and are flagged."""
+    from cadence_tpu.ops.replay import replay_from_state as j_from_state
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as T_LAYOUT
+    from cadence_tpu_torch.gen.lanes import trap_corpus
+    from cadence_tpu_torch.ops.state import widen_layout as t_widen
+    from tests.torch_parity import jax_state_from_numpy
+
+    st, ln = trap_corpus(36, 24, 950 + factor, t_widen(T_LAYOUT, factor))
+    js = jax_state_from_numpy(st, widen_layout(DEFAULT_LAYOUT, factor))
+    if replayed:
+        js = j_from_state(ln, js)
+    want_rows, want_ovf = (np.asarray(x) for x in j_narrow(js, DEFAULT_LAYOUT))
+    rows, ovf = payload_rows_narrow(state_from_numpy(jax_state_to_numpy(js), device="cpu"),
+                                    DEFAULT_LAYOUT)
+    assert np.array_equal(rows.numpy(), want_rows)
+    assert np.array_equal(ovf.numpy(), want_ovf)
+    if factor == 2:
+        assert want_ovf.any() and not want_ovf.all()

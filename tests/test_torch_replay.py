@@ -168,3 +168,154 @@ def test_kernel_state_checks(factor):
     assert [(n, t.dtype, tuple(t.shape[1:])) for n, t in leaves(s)] == list(ref)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         _build.state_pointer_table(s)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's trap states and its route by size (csrc/replay_tables.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _trap(factor, W=36, E=24, seed=900):
+    """trap_corpus at the factor-widened layout: (numpy state, lanes, JAX
+    layout)."""
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as T_LAYOUT
+    from cadence_tpu_torch.gen.lanes import trap_corpus
+    from cadence_tpu_torch.ops.state import widen_layout as t_widen
+
+    st, ln = trap_corpus(W, E, seed + factor, t_widen(T_LAYOUT, factor))
+    return st, ln, widen_layout(DEFAULT_LAYOUT, factor)
+
+
+@pytest.mark.parametrize("factor", [1, 4])
+def test_plain_replay_on_trap_states(factor):
+    """From trap_corpus's carried states (full tables, duplicate keys, a run
+    reset mid-stream, forks, sticky errors, a history at Kv), the plain
+    version of kernel A equals the JAX package's replay_from_state on all 66
+    tensors, at the base layout and at rung 2 (K = 64, B = 8); each trap
+    fires as built."""
+    from cadence_tpu_torch.gen.lanes import TRAP_KINDS
+    from tests.torch_parity import assert_states_equal, jax_state_from_numpy
+
+    st, ln, jl = _trap(factor)
+    js = jr.replay_from_state(ln, jax_state_from_numpy(st, jl))
+    s = tr.replay_scan_plain(state_from_numpy(st, device="cpu"), torch.from_numpy(ln))
+    assert_states_equal(s, js)
+    err = s.error.numpy()
+    kind = np.arange(len(err)) % len(TRAP_KINDS)
+    at = {k: err[kind == i] for i, k in enumerate(TRAP_KINDS)}
+    assert (at["full_tables"] == 10).all()        # TABLE_OVERFLOW
+    assert (at["duplicate_keys"] == 0).all()      # every lookup matched both slots
+    assert (at["history_at_kv"] == 3).all()       # VERSION_HISTORY_OVERFLOW
+    assert (at["sticky_error"] == st["error"][kind == TRAP_KINDS.index("sticky_error")]).all()
+    forks = kind == TRAP_KINDS.index("fork")  # a second branch inherited a history
+    assert ((st["vh_count"][forks] > 0).sum(1) == 1).all()
+    assert ((s.vh_count.numpy()[forks] > 0).sum(1) == 2).any()
+
+
+def test_plain_tasks_on_trap_states():
+    """Kernel A's TASKS variant's plain version from the trap states equals
+    the JAX package's step then step_tasks, state and all 12 task-log
+    tensors."""
+    import jax
+    import jax.numpy as jnp
+
+    from cadence_tpu.ops.taskgen import init_task_log as j_log
+    from cadence_tpu.ops.taskgen import step_tasks as j_step_tasks
+    from cadence_tpu.ops.transitions import step as j_step
+    from cadence_tpu_torch.ops.convert import task_log_to_numpy
+    from cadence_tpu_torch.ops.taskgen import init_task_log
+    from tests.torch_parity import assert_states_equal, jax_state_from_numpy
+
+    st, ln, jl = _trap(1)
+
+    def body(carry, ev):
+        s, log = carry
+        s = j_step(s, ev)
+        return j_step_tasks(s, ev, log, 1), None
+
+    (js, jlog), _ = jax.lax.scan(body, (jax_state_from_numpy(st, jl), j_log(len(ln), 16, 16)),
+                                 jnp.swapaxes(jnp.asarray(ln), 0, 1))
+    s, log = tr.replay_tasks_scan_plain(state_from_numpy(st, device="cpu"),
+                                        init_task_log(len(ln), 16, 16, "cpu"),
+                                        torch.from_numpy(ln))
+    assert_states_equal(s, js)
+    got = task_log_to_numpy(log)
+    for name in jlog._fields:
+        assert np.array_equal(got[name], np.asarray(getattr(jlog, name))), name
+    assert got["tr_count"].any() and got["tm_count"].any()
+
+
+def _t_layout(factor=1, **caps):
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as T_LAYOUT
+    from cadence_tpu_torch.ops.state import widen_layout as t_widen
+
+    lay = t_widen(T_LAYOUT, factor)
+    return lay if not caps else type(lay)(**{**lay.__dict__, **caps})
+
+
+@pytest.mark.parametrize("factor,route", [(1, "staged"), (2, "staged"), (4, "staged"),
+                                          (8, "global"), (16, "global")])
+def test_replay_route_by_layout(factor, route):
+    """The ladder's rungs 0-2 (every capacity at most 64) take kernel A's
+    staged route, rung 3 (x8) and up the global one, by the layout alone,
+    each under its own launch names."""
+    from cadence_tpu_torch.ops import _build
+
+    lay = _t_layout(factor)
+    assert tr.replay_route(lay) == route
+    for name in ("replay", "replay_tasks", "replay_wirec"):
+        got = tr.launch_name(name, lay)
+        assert got == (name if route == "staged" else name + "_global")
+        assert got in _build.launches
+
+
+@pytest.mark.parametrize("caps,route", [
+    ({"max_activities": 64}, "staged"), ({"max_activities": 65}, "global"),
+    ({"max_timers": 64, "max_signals": 64}, "staged"), ({"max_signals": 65}, "global"),
+    ({"max_branches": 64, "max_version_history_items": 1024}, "staged")])
+def test_replay_route_at_the_mask_edge(caps, route):
+    """A table of 64 slots fits the occupancy mask, one of 65 does not; the
+    version history's depth never decides the route."""
+    assert tr.replay_route(_t_layout(**caps)) == route
+
+
+def test_staged_shared_memory_fits_every_staged_layout():
+    """Every layout the staged route takes (the ladder's rungs 0-2, and
+    capacities up to 64 with up to 64 branches) gets a block of 32
+    workflows whose shared memory is under the card's 227 KB; the base
+    layout's block takes 18,432 bytes, rung 2's 78,848."""
+    assert tr.staged_block(_t_layout()) == (32, 32 * 576)
+    assert tr.staged_block(_t_layout(4)) == (32, 32 * (8 * 288 + 20 * 8))
+    layouts = [_t_layout(f) for f in (1, 2, 4)] + [
+        _t_layout(max_activities=k, max_timers=k, max_children=k, max_request_cancels=k,
+                  max_signals=k, max_branches=b)
+        for k in (1, 7, 16, 33, 64) for b in (1, 2, 3, 16, 64)]
+    for lay in layouts:
+        nw, smem = tr.staged_block(lay)
+        assert tr.replay_route(lay) == "staged"
+        assert nw == tr.STAGED_WF and 0 < smem <= 227 * 1024
+
+
+def test_staged_constants_are_the_kernels():
+    """CHIP_MAX_K, the staged block's width and REG_BRANCHES are
+    csrc/replay_tables.cuh's, the shared-memory limit state.cuh's, and
+    staged_block sizes a workflow as staged_bytes_per_workflow does."""
+    import os
+    import re
+
+    from cadence_tpu_torch.ops import _build
+
+    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+    src = "".join(open(os.path.join(csrc, name)).read()
+                  for name in ("replay_tables.cuh", "state.cuh"))
+    consts = {name: eval(value, {}) for name, value in  # noqa: S307 (integer literals)
+              re.findall(r"constexpr int (\w+) = ([\d *]+);", src)}
+    for name in ("CHIP_MAX_K", "STAGED_WF", "SMEM_LIMIT", "REG_BRANCHES"):
+        assert consts[name] == getattr(tr, name), name
+    per = re.search(r"return (\d+) \* chip_key_slots\(c\) \+ \(c\.b > REG_BRANCHES \? "
+                    r"(\d+) \* c\.b : 0\);", src)
+    keys = re.search(r"return (\d+) \* c\.ka \+ c\.kt \+ c\.kc \+ c\.kr \+ c\.ks;", src)
+    lay = _t_layout(max_branches=5)
+    slots = int(keys.group(1)) * lay.max_activities + 16 + 8 + 8 + 8
+    assert tr.staged_block(lay)[1] == tr.staged_block(lay)[0] * (
+        int(per.group(1)) * slots + int(per.group(2)) * 5)

@@ -29,6 +29,22 @@ def jax_state_to_numpy(js) -> dict:
     return out
 
 
+def jax_state_from_numpy(mapping, layout):
+    """A JAX ReplayState at `layout` (the JAX package's PayloadLayout) from
+    {dotted field path: array}, the form jax_state_to_numpy gives."""
+    import jax.numpy as jnp
+
+    from cadence_tpu.ops.state import init_state
+
+    def build(prefix, x):
+        if hasattr(x, "_fields"):
+            return type(x)(**{f: build(f"{prefix}.{f}" if prefix else f, getattr(x, f))
+                              for f in x._fields})
+        return jnp.asarray(np.asarray(mapping[prefix]), dtype=x.dtype)
+
+    return build("", init_state(len(mapping["state"]), layout))
+
+
 def assert_states_equal(port_state, jax_state) -> None:
     """Every one of the 66 state tensors equal, in value and dtype."""
     want = jax_state_to_numpy(jax_state)
