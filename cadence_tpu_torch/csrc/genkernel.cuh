@@ -10,13 +10,15 @@
 // occupancy and started flags of the 4 activity, 3 timer and 2 child
 // slots are bitmasks, and the slot tables are small arrays indexed only
 // through unrolled selects, so they stay in registers. A step is `choose`
-// (the action, from the state and the step's draws) and `act<action>` (the
-// state's update and the event's attribute lanes). Kernel I runs them in
-// `step`, which fills the 18 lanes it writes; kernel A's generator reader
-// runs them beside each action's replay update, so no event byte exists in
-// memory. The draws (`Dice`) are the four counter hashes and the modulos
-// of them: made inside the step for kernel I (LazyDice), made ahead by the
-// block and packed in one word for kernel A (pack_dice, PackedDice).
+// (the action, from the state and the step's draws) and `act_all` (the
+// state's update and the event's attribute lanes). Kernel I runs
+// `step_with`, which fills the 18 lanes it writes. Kernel A's generator
+// reader runs the two beside each action's replay update, so no event byte
+// exists in memory; it calls act_all in each case of its switch on the
+// action, with the action a constant. The draws (`Dice`) are the four
+// counter hashes and the modulos of them (LazyDice defines them), made
+// ahead by the block and packed in one word for both kernels (pack_dice,
+// PackedDice).
 //
 // Where this must match the JAX package bit for bit:
 // - `mix`: adds and multiplies wrap in int64 (done in uint64_t: signed
@@ -51,24 +53,20 @@ enum : int {
   A_SIGNAL = 12, A_WFCLOSE = 13,
 };
 
-// _CODE_TO_TYPE: each action's EventType (core/enums.py)
+// _CODE_TO_TYPE: each action's EventType (core/enums.py), a byte each in
+// code order, packed in two words so that the lookup takes no branch:
+// WorkflowExecutionStarted 0, DecisionTaskScheduled 4, DecisionTaskStarted 5,
+// DecisionTaskCompleted 6, ActivityTaskScheduled 9, ActivityTaskStarted 10,
+// ActivityTaskCompleted 11, TimerStarted 17, TimerFired 18,
+// StartChildWorkflowExecutionInitiated 30, ChildWorkflowExecutionStarted 32,
+// ChildWorkflowExecutionCompleted 33, WorkflowExecutionSignaled 27,
+// WorkflowExecutionCompleted 1
 __device__ __forceinline__ int64_t code_to_type(int code) {
-  switch (code) {
-    case A_STARTED: return 0;    // WorkflowExecutionStarted
-    case A_DSCHED: return 4;     // DecisionTaskScheduled
-    case A_DSTART: return 5;     // DecisionTaskStarted
-    case A_DCOMPLETE: return 6;  // DecisionTaskCompleted
-    case A_ASCHED: return 9;     // ActivityTaskScheduled
-    case A_ASTART: return 10;    // ActivityTaskStarted
-    case A_ACLOSE: return 11;    // ActivityTaskCompleted
-    case A_TSTART: return 17;    // TimerStarted
-    case A_TFIRE: return 18;     // TimerFired
-    case A_CINIT: return 30;     // StartChildWorkflowExecutionInitiated
-    case A_CSTART: return 32;    // ChildWorkflowExecutionStarted
-    case A_CCLOSE: return 33;    // ChildWorkflowExecutionCompleted
-    case A_SIGNAL: return 27;    // WorkflowExecutionSignaled
-    default: return 1;           // WorkflowExecutionCompleted
-  }
+  constexpr unsigned long long LO = 0ull | 4ull << 8 | 5ull << 16 | 6ull << 24 | 9ull << 32 |
+                                    10ull << 40 | 11ull << 48 | 17ull << 56;  // codes 0-7
+  constexpr unsigned long long HI = 18ull | 30ull << 8 | 32ull << 16 | 33ull << 24 |
+                                    27ull << 32 | 1ull << 40;  // codes 8-13
+  return static_cast<int64_t>(((code < 8 ? LO : HI) >> (8 * (code & 7))) & 0xffull);
 }
 
 __device__ __forceinline__ uint64_t u(int64_t x) { return static_cast<uint64_t>(x); }
@@ -90,25 +88,6 @@ __device__ __forceinline__ int64_t die(int64_t r, int64_t n) {
   const uint64_t a = r < 0 ? 0ULL - u(r) : u(r);
   const int64_t m = static_cast<int64_t>(a % u(n));
   return r == INT64_MIN && m != 0 ? n - m : m;
-}
-
-// the lowest set bit of `mask`, or -1
-__device__ __forceinline__ int first_bit(uint32_t mask) { return __ffs(mask) - 1; }
-
-template <int K>
-__device__ __forceinline__ int64_t pick(const int64_t (&v)[K], int i) {
-  int64_t out = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (k == i) out = v[k];
-  return out;
-}
-
-template <int K>
-__device__ __forceinline__ void put(int64_t (&v)[K], int i, int64_t x) {
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (k == i) v[k] = x;
 }
 
 constexpr uint32_t ACT_ALL = 0xFu, TMR_ALL = 0x7u, CH_ALL = 0x3u;
@@ -138,10 +117,10 @@ __device__ __forceinline__ void init(GenState& g, int64_t seed, int64_t w) {
 }
 
 // The generator's draws for one (workflow, step): the four counter hashes
-// (salts 1-4) and the values `step` takes from them. Kernel I hashes inside
-// its step and takes each modulo where the action uses it (LazyDice);
-// kernel A's generator reader has them made ahead, off its dependent chain,
-// by more threads than there are workflows (pack_dice / PackedDice).
+// (salts 1-4) and the three draws every step takes from them (pack_dice
+// takes the attribute draws). Both kernels have them made ahead, off the
+// stepping thread's dependent chain, by more threads than there are
+// workflows (pack_dice / PackedDice).
 struct LazyDice {
   int64_t r0, r1, r2, r3;
   __device__ __forceinline__ LazyDice(int64_t seed, int64_t w, int64_t step)
@@ -150,11 +129,6 @@ struct LazyDice {
   __device__ __forceinline__ int64_t ts_ms() const { return die(r3, 5000) + 1; }
   __device__ __forceinline__ int64_t die1() const { return die(r0, 16); }
   __device__ __forceinline__ int64_t die2() const { return die(r1, 8); }
-  __device__ __forceinline__ int64_t started_a0() const { return 600 + die(r2, 6600); }
-  __device__ __forceinline__ int64_t sched_to_start() const { return 5 + die(r2, 115); }
-  __device__ __forceinline__ int64_t sched_to_close() const { return 30 + die(r2, 570); }
-  __device__ __forceinline__ int64_t start_to_close() const { return 10 + die(r3, 290); }
-  __device__ __forceinline__ int64_t timer_s() const { return 1 + die(r2, 600); }
 };
 
 // The draws of one step packed in 56 bits: die(r3, 5000) + 1 (13 bits),
@@ -183,8 +157,6 @@ struct PackedDice {
   __device__ __forceinline__ int64_t timer_s() const { return 1 + bits(37, 10); }
 };
 
-// gen_step for global workflow index w at scan step `step` of `total`, with
-// that step's draws `d`: writes the event's 18 lanes and advances g
 // The action of scan step `step` of `total`, chosen from the pre-step state
 // and the step's draws.
 template <class Dice>
@@ -237,88 +209,86 @@ __device__ __forceinline__ int choose(const GenState& g, const Dice& d, int64_t 
   return code;
 }
 
-// Action CODE's update of g (event id eid) and the event's attribute lanes:
-// writes the a[] entries the action sets, which start at 0.
-template <int CODE, class Dice>
-__device__ __forceinline__ void act(GenState& g, const Dice& d, int64_t eid, int64_t* a) {
-  if constexpr (CODE == A_STARTED) {
-    a[0] = d.started_a0();
-    a[1] = 10;
-    a[7] = -1;
-  } else if constexpr (CODE == A_DSCHED) {
-    a[0] = 10;
-    g.phase = 1;
-    g.dsched = eid;
-  } else if constexpr (CODE == A_DSTART) {
-    a[0] = g.dsched;
-    g.phase = 2;
-    g.dstart = eid;
-  } else if constexpr (CODE == A_DCOMPLETE) {
-    a[0] = g.dsched;
-    a[1] = g.dstart;
-    g.phase = 0;
-  } else if constexpr (CODE == A_ASCHED) {
-    const int slot = first_bit(~g.act_occ & ACT_ALL);
-    if (slot >= 0) {
-      g.act_occ |= 1u << slot;
-      put(g.act_sched, slot, eid);
-      g.act_started &= ~(1u << slot);
-    }
-    g.act_count += 1;
-    a[0] = g.act_count;  // the interned activity key
-    a[1] = d.sched_to_start();
-    a[2] = d.sched_to_close();
-    a[3] = d.start_to_close();
-  } else if constexpr (CODE == A_ASTART) {
-    const int sel = first_bit(g.act_occ & ~g.act_started);
-    if (sel >= 0) {
-      a[0] = pick(g.act_sched, sel);
-      g.act_started |= 1u << sel;
-    }
-  } else if constexpr (CODE == A_ACLOSE) {
-    const int sel = first_bit(g.act_occ & g.act_started);
-    if (sel >= 0) {
-      a[0] = pick(g.act_sched, sel);
-      g.act_occ &= ~(1u << sel);
-      g.act_started &= ~(1u << sel);
-    }
-  } else if constexpr (CODE == A_TSTART) {
-    g.tmr_count += 1;
-    const int slot = first_bit(~g.tmr_occ & TMR_ALL);
-    if (slot >= 0) {
-      g.tmr_occ |= 1u << slot;
-      put(g.tmr_key, slot, g.tmr_count);
-    }
-    a[0] = g.tmr_count;
-    a[1] = d.timer_s();
-  } else if constexpr (CODE == A_TFIRE) {
-    const int sel = first_bit(g.tmr_occ);
-    if (sel >= 0) {
-      a[0] = pick(g.tmr_key, sel);
-      g.tmr_occ &= ~(1u << sel);
-    }
-  } else if constexpr (CODE == A_CINIT) {
-    const int slot = first_bit(~g.ch_occ & CH_ALL);
-    if (slot >= 0) {
-      g.ch_occ |= 1u << slot;
-      put(g.ch_init, slot, eid);
-      g.ch_started &= ~(1u << slot);
-    }
-  } else if constexpr (CODE == A_CSTART) {
-    const int sel = first_bit(g.ch_occ & ~g.ch_started);
-    if (sel >= 0) {
-      a[0] = pick(g.ch_init, sel);
-      g.ch_started |= 1u << sel;
-    }
-  } else if constexpr (CODE == A_CCLOSE) {
-    const int sel = first_bit(g.ch_occ & g.ch_started);
-    if (sel >= 0) {
-      a[0] = pick(g.ch_init, sel);
-      g.ch_occ &= ~(1u << sel);
-      g.ch_started &= ~(1u << sel);
-    }
-  }
-  // A_SIGNAL, A_WFCLOSE: no attributes, no state
+// The lowest set bit of `m` as a mask (0 for none).
+__device__ __forceinline__ uint32_t low_bit(uint32_t m) { return m & (0u - m); }
+
+// The entry of v whose bit is set in `one` (a mask of at most one bit), or
+// 0 for none.
+template <int K>
+__device__ __forceinline__ int64_t pick_bit(const int64_t (&v)[K], uint32_t one) {
+  int64_t out = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) out = (one >> k) & 1u ? v[k] : out;
+  return out;
+}
+
+// Action `code`'s update of g (event id eid) and the event's attribute
+// lanes: writes the a[] entries the action sets, which start at 0. Every
+// action's update and attribute lanes are computed from the pre-step state
+// and kept under the action's predicate, so there is no branch on the code:
+// a warp whose workflows took different actions runs one instruction
+// stream, and the actions' independent work overlaps (the one stepping warp
+// of kernel I's parity-leg launch otherwise runs each distinct action's
+// short dependent chain in turn). With a constant code the compiler keeps
+// that action's update alone.
+template <class Dice>
+__device__ __forceinline__ void act_all(GenState& g, const Dice& d, int64_t eid, int code,
+                                        int64_t* a) {
+  const bool started = code == A_STARTED, dsched = code == A_DSCHED, dstart = code == A_DSTART;
+  const bool dcomplete = code == A_DCOMPLETE, asched = code == A_ASCHED;
+  const bool astart = code == A_ASTART, aclose = code == A_ACLOSE, tstart = code == A_TSTART;
+  const bool tfire = code == A_TFIRE, cinit = code == A_CINIT, cstart = code == A_CSTART;
+  const bool cclose = code == A_CCLOSE;
+  // the slots each action takes: an insert the first free, a start the
+  // first occupied unstarted, a close the first occupied started, a fire
+  // the first occupied
+  const uint32_t a_ins = asched ? low_bit(~g.act_occ & ACT_ALL) : 0u;
+  const uint32_t a_unstarted = low_bit(g.act_occ & ~g.act_started);
+  const uint32_t a_started = low_bit(g.act_occ & g.act_started);
+  const uint32_t a_start = astart ? a_unstarted : 0u, a_close = aclose ? a_started : 0u;
+  const uint32_t t_ins = tstart ? low_bit(~g.tmr_occ & TMR_ALL) : 0u;
+  const uint32_t t_first = low_bit(g.tmr_occ);
+  const uint32_t t_fire = tfire ? t_first : 0u;
+  const uint32_t c_ins = cinit ? low_bit(~g.ch_occ & CH_ALL) : 0u;
+  const uint32_t c_unstarted = low_bit(g.ch_occ & ~g.ch_started);
+  const uint32_t c_started = low_bit(g.ch_occ & g.ch_started);
+  const uint32_t c_start = cstart ? c_unstarted : 0u, c_close = cclose ? c_started : 0u;
+  const int64_t act_count = g.act_count + (asched ? 1 : 0);
+  const int64_t tmr_count = g.tmr_count + (tstart ? 1 : 0);
+
+  a[0] = started               ? d.started_a0()
+         : dsched              ? 10
+         : dstart || dcomplete ? g.dsched
+         : asched              ? act_count
+         : astart              ? pick_bit(g.act_sched, a_unstarted)
+         : aclose              ? pick_bit(g.act_sched, a_started)
+         : tstart              ? tmr_count
+         : tfire               ? pick_bit(g.tmr_key, t_first)
+         : cstart              ? pick_bit(g.ch_init, c_unstarted)
+         : cclose              ? pick_bit(g.ch_init, c_started)
+                               : 0;
+  a[1] = started ? 10 : dcomplete ? g.dstart : asched ? d.sched_to_start()
+         : tstart ? d.timer_s() : 0;
+  a[2] = asched ? d.sched_to_close() : 0;
+  a[3] = asched ? d.start_to_close() : 0;
+  a[7] = started ? -1 : 0;
+
+  g.phase = dsched ? 1 : dstart ? 2 : dcomplete ? 0 : g.phase;
+  g.dsched = dsched ? eid : g.dsched;
+  g.dstart = dstart ? eid : g.dstart;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) g.act_sched[k] = (a_ins >> k) & 1u ? eid : g.act_sched[k];
+  g.act_occ = (g.act_occ | a_ins) & ~a_close;
+  g.act_started = ((g.act_started & ~a_ins) | a_start) & ~a_close;
+  g.act_count = act_count;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g.tmr_key[k] = (t_ins >> k) & 1u ? tmr_count : g.tmr_key[k];
+  g.tmr_occ = (g.tmr_occ | t_ins) & ~t_fire;
+  g.tmr_count = tmr_count;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) g.ch_init[k] = (c_ins >> k) & 1u ? eid : g.ch_init[k];
+  g.ch_occ = (g.ch_occ | c_ins) & ~c_close;
+  g.ch_started = ((g.ch_started & ~c_ins) | c_start) & ~c_close;
 }
 
 // The timestamp of the event a step emits (the generator's clock after it).
@@ -336,21 +306,7 @@ __device__ __forceinline__ void step_with(GenState& g, const Dice& d, int64_t st
   const int64_t ts = next_ts(g, d);
   const int code = choose(g, d, step, total);
   int64_t a[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  switch (code) {
-    case A_STARTED: act<A_STARTED>(g, d, eid, a); break;
-    case A_DSCHED: act<A_DSCHED>(g, d, eid, a); break;
-    case A_DSTART: act<A_DSTART>(g, d, eid, a); break;
-    case A_DCOMPLETE: act<A_DCOMPLETE>(g, d, eid, a); break;
-    case A_ASCHED: act<A_ASCHED>(g, d, eid, a); break;
-    case A_ASTART: act<A_ASTART>(g, d, eid, a); break;
-    case A_ACLOSE: act<A_ACLOSE>(g, d, eid, a); break;
-    case A_TSTART: act<A_TSTART>(g, d, eid, a); break;
-    case A_TFIRE: act<A_TFIRE>(g, d, eid, a); break;
-    case A_CINIT: act<A_CINIT>(g, d, eid, a); break;
-    case A_CSTART: act<A_CSTART>(g, d, eid, a); break;
-    case A_CCLOSE: act<A_CCLOSE>(g, d, eid, a); break;
-    default: break;  // A_SIGNAL, A_WFCLOSE
-  }
+  act_all(g, d, eid, code, a);
   g.ts = ts;
 
   // -- the lanes (ops/encode.py): one event per batch, version, branch,
@@ -367,13 +323,6 @@ __device__ __forceinline__ void step_with(GenState& g, const Dice& d, int64_t st
   lane[15] = 0;
   lane[16] = 0;
   lane[17] = 0;
-}
-
-// gen_step for global workflow index w at scan step `step` of `total`:
-// writes the event's 18 lanes and advances g
-__device__ __forceinline__ void step(GenState& g, int64_t seed, int64_t w, int64_t step,
-                                     int64_t total, int64_t* lane) {
-  step_with(g, LazyDice(seed, w, step), step, total, lane);
 }
 
 }  // namespace gen

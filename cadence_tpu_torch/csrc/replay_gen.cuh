@@ -213,7 +213,10 @@ struct GenStepper {
   // One generated event of scan step e (of E) with that step's draws `word`;
   // the caller stops once r.error is set. The generator's action (code)
   // picks the event type, so one switch applies both the generator's update
-  // (genkernel.cuh act<code>) and the replay's (replay_step.cuh on_*).
+  // (genkernel.cuh act_all, the action a constant in each case) and the
+  // replay's (replay_step.cuh on_*). act_all once before the switch, at the
+  // step's action, was 12% slower at 16,384 workflows and 2% at 131,072 on
+  // the H100 (chip_smoke.py --variants, gen_act_all_once; PERF.md).
   __device__ __forceinline__ void step(const StatePtrs& S, const Caps& c, GenTables& t,
                                        int64_t e, int64_t E, uint64_t word) {
     const gen::PackedDice d{word, started};
@@ -274,51 +277,51 @@ struct GenStepper {
     int64_t a[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     switch (code) {
       case gen::A_STARTED:
-        gen::act<gen::A_STARTED>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_STARTED, a);
         on_workflow_started(r, ev_id, ts, a);
         break;
       case gen::A_DSCHED:
-        gen::act<gen::A_DSCHED>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_DSCHED, a);
         on_decision_scheduled(r, ev_id, ev_version, ts, a);
         break;
       case gen::A_DSTART:
-        gen::act<gen::A_DSTART>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_DSTART, a);
         on_decision_started(r, ev_id, ev_version, ts, a);
         break;
       case gen::A_DCOMPLETE:
-        gen::act<gen::A_DCOMPLETE>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_DCOMPLETE, a);
         on_decision_completed(r, a);
         break;
       case gen::A_ASCHED:
-        gen::act<gen::A_ASCHED>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_ASCHED, a);
         on_activity_scheduled(r, t, ev_id, ev_version, ts, batch_first, a);
         break;
       case gen::A_ASTART:
-        gen::act<gen::A_ASTART>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_ASTART, a);
         on_activity_started(r, t, ev_id, ev_version, ts, a);
         break;
       case gen::A_ACLOSE:
-        gen::act<gen::A_ACLOSE>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_ACLOSE, a);
         on_activity_closed(r, t, a);
         break;
       case gen::A_TSTART:
-        gen::act<gen::A_TSTART>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_TSTART, a);
         on_timer_started(r, t, ev_id, ev_version, ts, a);
         break;
       case gen::A_TFIRE:
-        gen::act<gen::A_TFIRE>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_TFIRE, a);
         on_timer_closed(r, t, a);
         break;
       case gen::A_CINIT:
-        gen::act<gen::A_CINIT>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_CINIT, a);
         on_child_initiated(r, t, ev_id, ev_version, batch_first);
         break;
       case gen::A_CSTART:
-        gen::act<gen::A_CSTART>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_CSTART, a);
         on_child_started(r, t, ev_id, a);
         break;
       case gen::A_CCLOSE:
-        gen::act<gen::A_CCLOSE>(g, d, ev_id, a);
+        gen::act_all(g, d, ev_id, gen::A_CCLOSE, a);
         on_child_closed(r, t, a);
         break;
       case gen::A_SIGNAL:

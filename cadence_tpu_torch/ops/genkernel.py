@@ -164,18 +164,31 @@ def _take(sel: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.where(sel, table, torch.zeros_like(table)).sum(dim=1)
 
 
-def gen_step(g: GenState, seed: int, first_index: int, step: int,
-             total_events: int) -> Tuple[GenState, torch.Tensor]:
+def step_dice(seed: int, first_index: int, num_workflows: int, step: int, device) -> dict:
+    """The draws gen_step takes at scan step `step`: the four counter hashes
+    (salts 1-4: r0-r3) and the values it takes from them, by name as
+    DICE_FIELDS and unpack_dice give them, and started_a0 (600 + die(r2,
+    6600), used at step 0)."""
+    w = _indices(num_workflows, first_index, device)
+    r0, r1, r2, r3 = (_mix(seed, w, step, salt) for salt in (1, 2, 3, 4))
+    return {"ts_ms": _die(r3, 5000) + 1, "die1": _die(r0, 16), "die2": _die(r1, 8),
+            "started_a0": 600 + _die(r2, 6600), "sched_to_start": 5 + _die(r2, 115),
+            "sched_to_close": 30 + _die(r2, 570), "start_to_close": 10 + _die(r3, 290),
+            "timer_s": 1 + _die(r2, 600)}
+
+
+def gen_step(g: GenState, seed: int, first_index: int, step: int, total_events: int,
+             dice: dict = None) -> Tuple[GenState, torch.Tensor]:
     """Plain version of the generator step: emit the event lanes [W, 18]
     of scan step `step` and advance the generator state. Every workflow
-    emits exactly one real event per step, so every id is step + 1."""
+    emits exactly one real event per step, so every id is step + 1. The
+    step's draws are `dice` (step_dice's keys) when given, else made here."""
     W = g.ts.shape[0]
     dev = g.ts.device
-    w = _indices(W, first_index, dev)
-    r0, r1, r2, r3 = (_mix(seed, w, step, salt) for salt in (1, 2, 3, 4))
+    d = step_dice(seed, first_index, W, step, dev) if dice is None else dice
 
     eid = torch.full((W,), step + 1, dtype=I64, device=dev)
-    ts = g.ts + (_die(r3, 5000) + 1) * NANOS_MS
+    ts = g.ts + d["ts_ms"] * NANOS_MS
 
     pending = (g.act_occ.sum(dim=1) + g.tmr_occ.sum(dim=1) + g.ch_occ.sum(dim=1)).to(I64)
     # an unstarted activity or child needs two drain events (start, close)
@@ -187,8 +200,8 @@ def gen_step(g: GenState, seed: int, first_index: int, step: int,
     drain = remaining <= pending + n_unstarted + 4
 
     # -- the action code
-    die = _die(r0, 16)
-    die2 = _die(r1, 8)
+    die = d["die1"]
+    die2 = d["die2"]
     act_free = ~g.act_occ.all(dim=1)
     act_unstarted = (g.act_occ & ~g.act_started).any(dim=1)
     act_any = g.act_occ.any(dim=1)
@@ -236,7 +249,7 @@ def gen_step(g: GenState, seed: int, first_index: int, step: int,
     # -- per-action state updates and attribute lanes
     a = [torch.zeros((W,), dtype=I64, device=dev) for _ in range(8)]
 
-    a[0] = torch.where(m(A_STARTED), 600 + _die(r2, 6600), a[0])
+    a[0] = torch.where(m(A_STARTED), d["started_a0"], a[0])
     a[1] = torch.where(m(A_STARTED), c(10), a[1])
     a[7] = torch.where(m(A_STARTED), c(-1), a[7])
 
@@ -258,9 +271,9 @@ def gen_step(g: GenState, seed: int, first_index: int, step: int,
     act_started = g.act_started & ~ins
     act_count = g.act_count + m(A_ASCHED).to(I64)
     a[0] = torch.where(m(A_ASCHED), act_count, a[0])  # the interned key
-    a[1] = torch.where(m(A_ASCHED), 5 + _die(r2, 115), a[1])
-    a[2] = torch.where(m(A_ASCHED), 30 + _die(r2, 570), a[2])
-    a[3] = torch.where(m(A_ASCHED), 10 + _die(r3, 290), a[3])
+    a[1] = torch.where(m(A_ASCHED), d["sched_to_start"], a[1])
+    a[2] = torch.where(m(A_ASCHED), d["sched_to_close"], a[2])
+    a[3] = torch.where(m(A_ASCHED), d["start_to_close"], a[3])
 
     sel, _ = _first(act_occ & ~act_started)
     sel = sel & m(A_ASTART)[:, None]
@@ -280,7 +293,7 @@ def gen_step(g: GenState, seed: int, first_index: int, step: int,
     tmr_occ = g.tmr_occ | ins
     tmr_key = torch.where(ins, tmr_count[:, None], g.tmr_key)
     a[0] = torch.where(m(A_TSTART), tmr_count, a[0])
-    a[1] = torch.where(m(A_TSTART), 1 + _die(r2, 600), a[1])
+    a[1] = torch.where(m(A_TSTART), d["timer_s"], a[1])
 
     sel, _ = _first(tmr_occ)
     sel = sel & m(A_TFIRE)[:, None]
@@ -380,6 +393,40 @@ def generate_lanes_plain(seed: int, first_index: int, num_workflows: int, total_
     out = torch.empty((num_workflows, total_events, NUM_LANES), dtype=I64, device=g.ts.device)
     for e in range(total_events):
         g, out[:, e] = gen_step(g, seed, first_index, e, total_events)
+    return out
+
+
+#: csrc/genkernel.cu: workflows a block (its stepping warp) and the steps
+#: of a tile, whose draws are made and whose lanes are stored by the block's
+#: other warps
+LANES_WF, LANES_TILE = 32, 4
+
+
+def generate_lanes_tiled_plain(seed: int, first_index: int, num_workflows: int,
+                               total_events: int, device="cpu") -> torch.Tensor:
+    """Plain version of kernel I's tiling: blocks of LANES_WF workflows, each
+    walking the steps in tiles of LANES_TILE; a tile's draws made first as
+    packed words (pack_dice_plain, unpacked as the stepping thread reads
+    them, with step 0's started_a0 made once a workflow), its steps run on
+    them into the tile, and the tile's lanes then written to each
+    workflow's span of the output. Equal to generate_lanes_plain."""
+    dev = resolve_device(device)
+    W, E = num_workflows, total_events
+    out = torch.empty((W, E, NUM_LANES), dtype=I64, device=dev)
+    for w0 in range(0, W, LANES_WF):
+        nw = min(LANES_WF, W - w0)
+        wf0 = first_index + w0
+        g = init_gen_state(nw, seed, wf0, dev)
+        started = 600 + _die(_mix(seed, _indices(nw, wf0, dev), 0, 3), 6600)
+        for e0 in range(0, E, LANES_TILE):
+            n = min(LANES_TILE, E - e0)
+            words = pack_dice_plain(seed, wf0, nw, e0, n, dev)
+            tile = torch.empty((nw, n, NUM_LANES), dtype=I64, device=dev)
+            for s in range(n):
+                d = unpack_dice(words[s])
+                d["started_a0"] = started
+                g, tile[:, s] = gen_step(g, seed, wf0, e0 + s, E, dice=d)
+            out[w0:w0 + nw, e0:e0 + n] = tile
     return out
 
 

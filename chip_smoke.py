@@ -7,7 +7,9 @@
     python3 chip_smoke.py --shapes-only  # the suites corpus, the build,
                                      # kernel_launch_shapes and kernel_replay_traps
     python3 chip_smoke.py --parent DIR [--variants]  # also time another checkout's
-                                     # kernels A and B (and VARIANTS) in kernel_launch_shapes
+                                     # kernels A, B, G, I and A's generator
+                                     # reader (and VARIANTS) in
+                                     # kernel_launch_shapes
 
 Phases, one JSON line each:
   1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
@@ -52,7 +54,8 @@ Phases, one JSON line each:
      narrow with init rows) with one index_select per state tensor as its
      yardstick, and kernel H (narrow_ok on a widened state).
      kernel_gen_lanes: kernel I (the device generator's lanes) at 16,384 x
-     1,000 against its plain version, every history running 1..E from
+     1,000 (held to its plain version in kernel_launch_shapes, which runs
+     first), every history running 1..E from
      Started to Completed, 256 sampled workflows (8 blocks of 32, their lanes
      made by the plain version on the CPU in the generation pool) equal to
      kernel I's and, through kernels A and B, to the oracle's rows.
@@ -66,9 +69,18 @@ Phases, one JSON line each:
      shapes the driven paths launch them with (serving flushes W in {8, 64,
      128} x 16 and 64 x 32 from carried states, held to the plain version;
      the 4,096 x 123 chunk; the 40,960 x 123 bulk; B at 64, 4,096 and
-     40,960), each beside its bound and the launch floor (a one-element
-     add_ timed the same way); with --parent DIR and --variants, other
-     builds on the same arguments, held equal and timed in the same call.
+     40,960); kernel G at the resident pool's (a gather of 8, 64 and 128
+     rows from a 64-row and a 128-row slab, a 64-row scatter into a slab, a
+     64 -> 128 slab growth, a 64-row widen with init rows and its narrow,
+     the 4,096-row gather), each equal to rehome_plain, and one rehome()
+     call with host row indices behind a queued kernel A (rehome_staging);
+     kernel I at the parity leg's 32 x 1,000 and at 16,384 x 1,000, equal
+     to generate_lanes_plain; kernel A's generator reader at 16,384 x 1,000
+     and at 131,072 x 1,000 (the north star's chunks); each beside its
+     bound and the launch floor (a one-element add_ timed the same way), as
+     the host launches it and (device_ms) behind a queued spin kernel, the
+     card's time alone; with --parent DIR and --variants, other builds on
+     the same arguments, held equal and timed in the same call.
      kernel_replay_traps: kernel A (every reader, with and without tasks)
      and kernel B against their plain versions on gen/lanes.py
      trap_corpus states at x1, x2, x4 and x8 and random lanes at x8, every
@@ -615,17 +627,27 @@ def generate(args):
 # Device helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int = REPS, setup=None, inner: int = 1, warm: bool = True):
+#: cycles of the spin kernel cuda_ms(behind=True) queues ahead of its first
+#: event (about 0.1 ms), longer than the host takes to enqueue a launch
+BEHIND_CYCLES = 200_000
+
+
+def cuda_ms(fn, reps: int = REPS, setup=None, inner: int = 1, warm: bool = True,
+            behind: bool = False):
     """Median milliseconds of `fn` over `reps` timed runs (after one warm-up
     unless `warm` is False), each run `inner` back-to-back calls between two
     CUDA events; `setup()` runs before the first event and its result is
-    `fn`'s argument."""
+    `fn`'s argument. With `behind`, a spin kernel is queued first, so the
+    card is still busy when the host has enqueued the launch: the time is
+    the card's alone, without the host's enqueue."""
     import torch
 
     def once():
         arg = setup() if setup else None
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if behind:
+            torch.cuda._sleep(BEHIND_CYCLES)
         a.record()
         for _ in range(inner):
             fn(arg)
@@ -1703,10 +1725,12 @@ def gen_ops(lanes) -> int:
     return types.numel() * GEN_OPS_PER_EVENT + draws * (DIE_OPS + ADD64)
 
 
-def gen_kernels(args, corp, dev, records):
+def gen_kernels(args, corp, dev, records, err_i: int):
     """Phases kernel_gen_lanes and kernel_replay_gen: kernel I and kernel
     A's generator reader against their plain versions, against each other
-    and against the oracle, timed beside their bounds."""
+    and against the oracle, timed beside their bounds. `err_i` is kernel
+    I's largest difference from its plain version at this phase's shape,
+    which kernel_launch_shapes measured (and held to 0) before it."""
     import numpy as np
     import torch
 
@@ -1717,14 +1741,11 @@ def gen_kernels(args, corp, dev, records):
 
     W, E = GEN_CHECK_W, args.ns_events
     launch = lambda run: run()  # noqa: E731
-    # --- kernel I, equal to its plain version with tolerance 0
-    lk = G.generate_lanes(SEED, 0, W, E, dev)
-    lp = G.generate_lanes_plain(SEED, 0, W, E, dev)
-    err_i = max_abs_err(lk, lp)
-    if err_i or not torch.equal(lk, lp):
+    # --- kernel I (equal to its plain version with tolerance 0 at this shape
+    # in kernel_launch_shapes)
+    if err_i:
         fail(f"gen_lanes kernel differs from its plain version (max abs err {err_i})")
-    del lp
-    torch.cuda.empty_cache()
+    lk = G.generate_lanes(SEED, 0, W, E, dev)
     # every history closes: ids 1..E, Started first, Completed last
     ids = torch.arange(1, E + 1, device=dev)
     if (not bool((lk[:, :, 0] == ids).all())
@@ -1793,8 +1814,7 @@ def gen_kernels(args, corp, dev, records):
     # the fill chunk's operations: the W-workflow count scaled to its width
     ops_fill = ops_w * fill // W
     sb_fill = sb // W * fill
-    regs_g = {f"tpw{t}": ptxas_usage(_build.build_log, f"replay_gen_kernelILi{t}E")
-              for t in (1, 2)}
+    regs_g = gen_ptxas(_build.build_log)
     regs_a = a_ptxas(_build.build_log)
     records.append(kernel_record(
         "replay_gen", "cadence_tpu_torch/csrc/replay_gen.cu", "cadence_tpu/ops/genkernel.py:332",
@@ -1918,7 +1938,12 @@ CHUNK_W = 4096
 #: the C entry point each launch name calls (the parent commit has the same
 #: signatures)
 ENTRY = {"replay": "cadence_replay", "replay_tasks": "cadence_replay_tasks",
-         "replay_wirec": "cadence_replay_wirec", "payload": "cadence_payload"}
+         "replay_wirec": "cadence_replay_wirec", "payload": "cadence_payload",
+         "rehome": "cadence_rehome", "gen_lanes": "cadence_gen_lanes",
+         "replay_gen": "cadence_replay_gen"}
+#: the kernels kernel_launch_shapes times, by the source files that build them
+#: (and kernel A's entry points, replay*.cu)
+SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu")
 
 
 def build_entries(csrc: str, sources, subs=()):
@@ -2025,31 +2050,35 @@ def kept(launch, *outputs):
     return launch, outputs
 
 
-def launch_shapes(events_np, dev, variants=()) -> dict:
+def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
     """Phase kernel_launch_shapes: kernel A (each reader, with and without
-    tasks) and kernel B timed at the shapes the driven paths launch them
-    with, each beside its bound and the launch floor (a one-element add_
-    timed the same way). Each of `variants` ((name, library from
-    build_entries)) runs the same arguments and must give the same outputs;
-    a variant named "parent" (the parent commit's kernels) is timed in
-    turns parent, change, change, parent, the others after the change.
-    Every launch runs on fresh copies of its inputs. Returns the phase's
-    record."""
+    tasks), kernel B, kernel G, kernel I and A's generator reader timed at the shapes the driven
+    paths launch them with, each beside its bound and the launch floor (a
+    one-element add_ timed the same way). Each of `variants` ((name, library
+    from build_entries)) runs the same arguments and must give the same
+    outputs; a variant named "parent" (the parent commit's kernels) is timed
+    in turns parent, change, change, parent, the others after the change.
+    Every launch runs on fresh copies of its inputs. Kernel G is timed at
+    the resident pool's shapes (rehome_shapes), kernel I at the north
+    star's parity leg (NS_BLOCK x gen_events) and at GEN_CHECK_W x
+    gen_events, kernel A's generator reader at GEN_CHECK_W and at the
+    largest of NS_CHUNKS x gen_events. Returns the phase's record."""
     import numpy as np
     import torch
 
     from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
     from cadence_tpu_torch.native import wirec as NW
-    from cadence_tpu_torch.ops import replay as R
+    from cadence_tpu_torch.ops import genkernel as G, rehome as RH, replay as R
     from cadence_tpu_torch.ops.encode import to_wire32
     from cadence_tpu_torch.ops.payload import payload_launch
-    from cadence_tpu_torch.ops.state import init_state, map_state
+    from cadence_tpu_torch.ops.state import init_state, map_state, rehome_plain
     from cadence_tpu_torch.ops.taskgen import init_task_log
 
     launch = lambda run: run()  # noqa: E731
     clone = lambda s: map_state(lambda t: t.clone(), s)  # noqa: E731
     one = torch.zeros(1, device=dev)
     floor = cuda_ms(lambda _: one.add_(1))
+    floor_device = cuda_ms(lambda _: one.add_(1), behind=True)
     variants = list(variants)
     parent = dict(variants).get("parent")
     shapes = {}
@@ -2062,7 +2091,8 @@ def launch_shapes(events_np, dev, variants=()) -> dict:
         want()
         if check is not None:
             outputs_equal(want_out, check, f"{key}: kernel against its plain version")
-        for who, lib in variants:
+        mine = [(who, lib) for who, lib in variants if hasattr(lib, ENTRY[name])]
+        for who, lib in mine:
             got, got_out = make()
             rebind(got, lib, name)()
             outputs_equal(got_out, want_out, f"{key}: {who} against the port")
@@ -2072,10 +2102,15 @@ def launch_shapes(events_np, dev, variants=()) -> dict:
             runs["parent"] = [cuda_ms(launch, setup=other(parent))]
         runs["change"] = [cuda_ms(launch, setup=lambda: make()[0])
                           for _ in range(2 if parent is not None else 1)]
-        for who, lib in variants:
+        for who, lib in mine:
             runs.setdefault(who, []).append(cuda_ms(launch, setup=other(lib)))
+        # the card's time alone, behind a queued spin kernel
+        device = {"change": cuda_ms(launch, setup=lambda: make()[0], behind=True)}
+        for who, lib in mine:
+            device[who] = cuda_ms(launch, setup=other(lib), behind=True)
         rec = {"kernel": name, "ms": {who: statistics.mean(v) for who, v in runs.items()},
-               "runs": runs, "bound_ms": bound_ms(nbytes, ops), "floor_ms": floor}
+               "runs": runs, "device_ms": device, "bound_ms": bound_ms(nbytes, ops),
+               "floor_ms": floor, "floor_device_ms": floor_device}
         shapes[key] = rec
         emit("kernel_launch_shape", shape=key, **rec)
 
@@ -2152,27 +2187,222 @@ def launch_shapes(events_np, dev, variants=()) -> dict:
 
         nbytes, ops = payload_bytes_ops(Wb, L)
         timed(f"payload {Wb}", "payload", make_b, nbytes, ops)
+    # kernel G at the resident pool's shapes, on rows of the chunk's and the
+    # bulk's final states
+    for key, src, rows, out_lay, dst, d_rows in rehome_shapes(finals[CHUNK_W], finals[W_all],
+                                                             finals[64], dev):
+        def make_g(src=src, rows=rows, out_lay=out_lay, dst=dst, d_rows=d_rows):
+            d = None if dst is None else clone(dst)
+            run, out = RH.rehome_launch(src, rows, out_lay, d, d_rows)
+            return kept(run, out)
+
+        want = rehome_plain(src, rows, out_lay, None if dst is None else clone(dst), d_rows)
+        timed(key, "rehome", make_g, rehome_bytes(src, rows, out_lay), 0, check=(want,))
+        del want
+    staging = rehome_staging(events_np, finals[CHUNK_W], dev)
+    # kernel I at the parity leg's launch (NS_BLOCK workflows; bench.py's
+    # sample blocks start anywhere) and at the check width, each launch's
+    # largest difference from the plain version kept for kernel_gen_lanes
+    gen_err = {}
+    for Wi, first in ((NS_BLOCK, 5 * NS_BLOCK), (GEN_CHECK_W, 0)):
+        key = f"gen_lanes {Wi}x{gen_events}"
+        plain = G.generate_lanes_plain(SEED, first, Wi, gen_events, dev)
+        gen_err[key] = max_abs_err(G.generate_lanes(SEED, first, Wi, gen_events, dev), plain)
+        timed(key, "gen_lanes",
+              lambda Wi=Wi, first=first: kept(*G.generate_lanes_launch(SEED, first, Wi,
+                                                                        gen_events, dev)),
+              plain.numel() * 8, gen_ops(plain), check=(plain,))
+        if Wi == GEN_CHECK_W:
+            ops_check = gen_ops(plain) + replay_ops(plain)
+        del plain
     torch.cuda.empty_cache()
-    return {"floor_ms": floor, "shapes": shapes}
+    # kernel A's generator reader at the check width and at the north star's
+    # chunk that fills the card, from fresh states (its operations those of
+    # the check width's lanes, scaled)
+    row_bytes = state_bytes(init_state(1, L, "meta"))
+    for Wg in (GEN_CHECK_W, max(NS_CHUNKS)):
+        timed(f"replay_gen {Wg}x{gen_events}", "replay_gen",
+              lambda Wg=Wg: kept(G.gen_launch(s := init_state(Wg, L, dev), SEED, 0, gen_events),
+                                 s),
+              Wg * row_bytes, ops_check * Wg // GEN_CHECK_W)
+        torch.cuda.empty_cache()
+    return {"floor_ms": floor, "floor_device_ms": floor_device, "shapes": shapes,
+            "rehome_staging": staging, "gen_lanes_max_abs_err": gen_err}
+
+
+def rehome_shapes(chunk, bulk, batch, dev):
+    """Kernel G's launches as the resident pool makes them, each as (key,
+    source, source rows, out layout, destination or None, destination rows):
+    the serving flush's gather of 8, 64 and 128 rows from a 64-row
+    (SLAB_ROWS) and a 128-row slab (engine/resident.py _gather_locked; past
+    the slab's rows the flush pads with init rows), its write-back of a
+    64-row batch into slab rows (_flush_writes_locked), a slab's growth from
+    64 to 128 rows (_Slab.grow), a 64-row widen with init rows and its
+    narrow (the ladder's), and a verify chunk's 4,096-row gather. The slabs
+    hold rows of `chunk` (base layout); `batch` is a 64-row flush's state;
+    the 4,096 rows come from `bulk`. Row indices are on the card, as the
+    timed launch takes them."""
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.engine.resident import SLAB_ROWS
+    from cadence_tpu_torch.ops.state import init_state, rehome_plain, widen_layout
+
+    gen = torch.Generator().manual_seed(SEED)
+    on = lambda rows: torch.as_tensor(rows, dtype=torch.int64).to(dev)  # noqa: E731
+    perm = lambda n, k: torch.randperm(n, generator=gen)[:k]  # noqa: E731
+    slabs = {r: rehome_plain(chunk, on(perm(chunk.state.shape[0], r)), L)
+             for r in (SLAB_ROWS, 2 * SLAB_ROWS)}
+    out = []
+    for r, slab in slabs.items():
+        for n in (8, 64, 128):
+            rows = perm(r, min(n, r)).tolist() + [-1] * max(0, n - r)
+            out.append((f"rehome gather {n} of {r}", slab, on(rows), L, None, None))
+    out.append(("rehome scatter 64 into 128", batch, on(range(64)), L, slabs[2 * SLAB_ROWS],
+                on(perm(2 * SLAB_ROWS, 64))))
+    out.append(("rehome grow 64 to 128", slabs[SLAB_ROWS], on(range(SLAB_ROWS)), L,
+                init_state(2 * SLAB_ROWS, L, dev), on(range(SLAB_ROWS))))
+    L1 = widen_layout(L, 2)
+    mixed = torch.arange(SLAB_ROWS)
+    mixed[::7] = -1
+    out.append(("rehome widen 64 with init rows", slabs[SLAB_ROWS], on(mixed), L1, None, None))
+    wide = rehome_plain(slabs[SLAB_ROWS], on(range(SLAB_ROWS)), L1)
+    out.append(("rehome narrow 64", wide, on(range(SLAB_ROWS)), L, None, None))
+    out.append((f"rehome gather {CHUNK_W}", bulk, on(perm(bulk.state.shape[0], CHUNK_W)), L,
+                None, None))
+    return out
+
+
+def rehome_bytes(src, rows, out_layout) -> int:
+    """Kernel G's bytes: each source row's slots below both capacities read
+    once (init rows read nothing), every out row written once."""
+    import math
+
+    import torch
+
+    from cadence_tpu_torch.ops.state import init_state, leaves, layout_of
+
+    ins = leaves(init_state(1, layout_of(src), "meta"))
+    outs = leaves(init_state(1, out_layout, "meta"))
+    common = sum(t.element_size() * math.prod(min(a, b) for a, b in zip(t.shape, u.shape))
+                  for (_, t), (_, u) in zip(ins, outs))
+    written = sum(u.element_size() * u.numel() for _, u in leaves(init_state(1, out_layout,
+                                                                             "meta")))
+    rows = torch.as_tensor(rows)
+    return int((rows >= 0).sum()) * common + rows.numel() * written
+
+
+def rehome_staging(events_np, slab_src, dev, reps: int = REPS) -> dict:
+    """One rehome() call at a 64-row flush with its rows as a host list,
+    behind a queued kernel A (`events_np` replayed from a fresh state: the
+    bulk, about a millisecond): the host's milliseconds in the call, and the device's
+    from before kernel A to after kernel G (CUDA events). `pageable` stages
+    the rows as a copy from pageable memory, as ops/rehome.py did before
+    its staging went through page-locked memory; `rehome` is the call as
+    the port makes it; `rehome_alone` the same call with nothing queued.
+    Median of `reps` after a warm-up each."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.engine.resident import SLAB_ROWS
+    from cadence_tpu_torch.ops import rehome as RH, replay as R
+    from cadence_tpu_torch.ops.state import init_state, map_state
+
+    ev = torch.from_numpy(events_np).to(dev)
+    rows = list(range(0, 2 * SLAB_ROWS, 2))
+    rows_np = np.asarray(rows, dtype=np.int64)
+    slab = map_state(lambda t: t[:2 * SLAB_ROWS].clone(), slab_src)
+    stages = {  # name: (the call, behind kernel A)
+        "pageable": (lambda: RH.rehome_launch(slab, torch.from_numpy(rows_np).to(dev), L)[0](),
+                     True),
+        "rehome": (lambda: RH.rehome(slab, rows, L), True),
+        "rehome_alone": (lambda: RH.rehome(slab, rows, L), False),
+    }
+    def kernel_a():
+        s = init_state(ev.shape[0], L, dev)
+        run = R.replay_launch(s, ev)
+        run.keep = s  # the state its pointers point into
+        return run
+
+    out = {}
+    for name, (stage, behind) in stages.items():
+        runs = []
+        for _ in range(reps + 1):
+            a_run = kernel_a()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            if behind:
+                a_run()
+            t0 = time.perf_counter()
+            stage()
+            host = (time.perf_counter() - t0) * 1e3
+            b.record()
+            b.synchronize()
+            runs.append((host, a.elapsed_time(b)))
+        out[name] = {"host_ms": statistics.median(h for h, _ in runs[1:]),
+                     "device_ms": statistics.median(d for _, d in runs[1:])}
+    out["kernel_a_ms"] = cuda_ms(lambda go: go(), setup=kernel_a)
+    del ev, a_run
+    emit("rehome_staging", rows=len(rows), behind="kernel A at the bulk", **out)
+    return out
 
 
 #: variants of this tree's kernels, built by text substitution and timed
-#: beside the port's in kernel_launch_shapes: name -> ((file, old, new), ...):
-#: kernel A's staged route without its lanes loaded an event ahead, with the
-#: wirec reader's register cap on every reader, and with blocks of 64
-#: workflows; kernel B with blocks of 16 workflows, and of 128 threads. Built
-#: and timed with --variants
+#: beside the port's in kernel_launch_shapes: name -> (the sources built,
+#: ((file, old, new), ...)): kernel A's staged route without its lanes
+#: loaded an event ahead, with the wirec reader's register cap on every
+#: reader, and with blocks of 64 workflows; kernel B with blocks of 16
+#: workflows, and of 128 threads; kernel G with four units a thread (a
+#: quarter of the blocks, each thread's four loads ahead of its stores),
+#: and with whole rows moved an element a unit (no 16-byte units); kernel I
+#: with tiles of 8 and of 16 steps, with 256 threads a block (seven warps
+#: that draw and store), and with its step's update in a switch on the
+#: action (each case act_all at a constant action, the branches the
+#: generator reader takes); kernel A's generator reader with act_all run
+#: once at the step's action before its switch on the replay's effects.
+#: Built and timed with --variants
+A_SOURCES = ("replay.cu", "replay_tasks.cu", "replay_global.cu")
+#: the actions whose update act_all makes (csrc/genkernel.cuh; A_SIGNAL and
+#: A_WFCLOSE change nothing)
+GEN_ACTIONS = ("A_STARTED", "A_DSCHED", "A_DSTART", "A_DCOMPLETE", "A_ASCHED", "A_ASTART",
+               "A_ACLOSE", "A_TSTART", "A_TFIRE", "A_CINIT", "A_CSTART", "A_CCLOSE")
 VARIANTS = {
-    "no_prefetch": (("replay_kernel.cuh", "constexpr bool PREFETCH_LANES = true;",
-                     "constexpr bool PREFETCH_LANES = false;"),),
-    "bounds_all_readers": (("replay_kernel.cuh", "READER == READ_WIREC ? Tables::MIN_BLOCKS : 1",
-                            "Tables::MIN_BLOCKS"),),
-    "block64": (("replay_tables.cuh", "constexpr int STAGED_WF = 32;",
-                 "constexpr int STAGED_WF = 64;"),),
-    "payload_wf16": (("payload.cu", "constexpr int PAYLOAD_MAX_WF = 32;",
-                      "constexpr int PAYLOAD_MAX_WF = 16;"),),
-    "payload_threads128": (("payload.cu", "constexpr int PAYLOAD_THREADS = 256;",
-                            "constexpr int PAYLOAD_THREADS = 128;"),),
+    "no_prefetch": (A_SOURCES, (("replay_kernel.cuh", "constexpr bool PREFETCH_LANES = true;",
+                                 "constexpr bool PREFETCH_LANES = false;"),)),
+    "bounds_all_readers": (A_SOURCES, (("replay_kernel.cuh",
+                                        "READER == READ_WIREC ? Tables::MIN_BLOCKS : 1",
+                                        "Tables::MIN_BLOCKS"),)),
+    "block64": (A_SOURCES, (("replay_tables.cuh", "constexpr int STAGED_WF = 32;",
+                             "constexpr int STAGED_WF = 64;"),)),
+    "payload_wf16": (("payload.cu",), (("payload.cu", "constexpr int PAYLOAD_MAX_WF = 32;",
+                                        "constexpr int PAYLOAD_MAX_WF = 16;"),)),
+    "payload_threads128": (("payload.cu",), (("payload.cu",
+                                              "constexpr int PAYLOAD_THREADS = 256;",
+                                              "constexpr int PAYLOAD_THREADS = 128;"),)),
+    "rehome_items4": (("rehome.cu",), (("rehome.cu", "constexpr int G_ITEMS = 1;",
+                                        "constexpr int G_ITEMS = 4;"),)),
+    "rehome_element_units": (("rehome.cu",), (("rehome.cu",
+                                               "for (int ub = 16; ub > size; ub >>= 1)",
+                                               "for (int ub = size; ub > size; ub >>= 1)"),)),
+    "lanes_tile8": (("genkernel.cu",), (("genkernel.cu", "constexpr int LANES_TILE = 4;",
+                                         "constexpr int LANES_TILE = 8;"),)),
+    "lanes_tile16": (("genkernel.cu",), (("genkernel.cu", "constexpr int LANES_TILE = 4;",
+                                          "constexpr int LANES_TILE = 16;"),)),
+    "lanes_threads256": (("genkernel.cu",), (("genkernel.cu",
+                                              "constexpr int LANES_THREADS = 128;",
+                                              "constexpr int LANES_THREADS = 256;"),)),
+    "switch_step": (("genkernel.cu",), (("genkernel.cuh", "  act_all(g, d, eid, code, a);\n",
+                                         "  switch (code) {\n" + "".join(
+                                             f"    case {c}: act_all(g, d, eid, {c}, a); break;\n"
+                                             for c in GEN_ACTIONS)
+                                         + "    default: break;\n  }\n"),)),
+    "gen_act_all_once": (("replay_gen.cu",), (
+        ("replay_gen.cuh", "    switch (code) {\n",
+         "    gen::act_all(g, d, ev_id, code, a);\n    switch (code) {\n"),
+        *(("replay_gen.cuh", f"        gen::act_all(g, d, ev_id, gen::{c}, a);\n", "")
+          for c in GEN_ACTIONS))),
 }
 #: kernel A's instances, by reader, tasks and route (mangled-name parts
 #: for ptxas_usage)
@@ -2190,46 +2420,66 @@ def a_ptxas(build_log: str) -> dict:
     return {name: ptxas_usage(build_log, *parts) for name, parts in A_INSTANCES.items()}
 
 
-def launch_shapes_phase(args, events_np, dev, records) -> None:
-    """Build the parent commit's kernels A and B (with --parent) and this
-    tree's VARIANTS (with --variants), run launch_shapes, emit its record and
-    add the times to kernels A's and B's records."""
+def gen_ptxas(build_log: str) -> dict:
+    """Registers and spills of kernel A's generator reader in a build log,
+    at 1 and 2 threads a workflow."""
+    return {f"tpw{t}": ptxas_usage(build_log, f"replay_gen_kernelILi{t}E") for t in (1, 2)}
+
+
+def launch_shapes_phase(args, events_np, dev) -> dict:
+    """Build the parent commit's kernels A, B, G and I (with --parent) and
+    this tree's VARIANTS (with --variants), run launch_shapes, emit its
+    record and return it (attach_launch_shapes adds its times to the
+    kernels' records)."""
     from cadence_tpu_torch.ops import _build
 
-    builds = []
-    if args.parent:
-        builds.append(("parent", os.path.join(args.parent, "cadence_tpu_torch", "csrc"), ()))
-    if args.variants:
-        builds += [(name, _build._CSRC, subs) for name, subs in VARIANTS.items()]
     from concurrent.futures import ThreadPoolExecutor
 
+    builds = []  # (name, kernel directory, sources, substitutions)
+    if args.parent:  # kernel A's (and its generator reader's), B's, G's and I's files
+        csrc = os.path.join(args.parent, "cadence_tpu_torch", "csrc")
+        builds.append(("parent", csrc, [f for f in sorted(os.listdir(csrc)) if f in SHAPE_SOURCES
+                                        or (f.startswith("replay") and f.endswith(".cu"))], ()))
+    if args.variants:
+        builds += [(name, _build._CSRC, list(srcs), subs)
+                   for name, (srcs, subs) in VARIANTS.items()]
     t0 = time.perf_counter()
-    def sources(csrc):  # kernel A's and B's files in that tree
-        return [f for f in sorted(os.listdir(csrc)) if f == "payload.cu"
-                or (f.startswith("replay") and f.endswith(".cu") and f != "replay_gen.cu")]
-
     with ThreadPoolExecutor(max(1, len(builds))) as pool:
-        built = list(pool.map(lambda b: build_entries(b[1], sources(b[1]), b[2]), builds))
-    libs = [(name, lib) for (name, _, _), (lib, _) in zip(builds, built)]
-    ptxas = {name: {line.strip() for line in log.splitlines()
+        built = list(pool.map(lambda b: build_entries(b[1], b[2], b[3]), builds))
+    libs = [(b[0], lib) for b, (lib, _) in zip(builds, built)]
+    ptxas = {b[0]: {line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line}
-             for (name, _, _), (_, log) in zip(builds, built)}
+             for b, (_, log) in zip(builds, built)}
     t_build = time.perf_counter() - t0
-    out = launch_shapes(events_np, dev, libs)
-    emit("kernel_launch_shapes", floor_ms=out["floor_ms"], built=[n for n, _, _ in builds],
+    out = launch_shapes(events_np, dev, args.ns_events, libs)
+    emit("kernel_launch_shapes", floor_ms=out["floor_ms"], floor_device_ms=out["floor_device_ms"],
+         built=[b[0] for b in builds],
          build_seconds=t_build, ptxas={n: sorted(v) for n, v in ptxas.items()},
          ptxas_kernel_a=a_ptxas(_build.build_log),
          ptxas_kernel_b=ptxas_usage(_build.build_log, "payload_kernel"),
-         ptxas_variants={name: a_ptxas(log) for (name, _, _), (_, log) in zip(builds, built)
-                         if name != "parent"})
+         ptxas_kernel_g=ptxas_usage(_build.build_log, "rehome_kernel"),
+         ptxas_kernel_i=ptxas_usage(_build.build_log, "gen_lanes_kernel"),
+         ptxas_replay_gen=gen_ptxas(_build.build_log),
+         ptxas_variants={b[0]: {**a_ptxas(log), "rehome": ptxas_usage(log, "rehome_kernel"),
+                                "gen_lanes": ptxas_usage(log, "gen_lanes_kernel"),
+                                "replay_gen": gen_ptxas(log)}
+                         for b, (_, log) in zip(builds, built) if b[0] != "parent"})
+    return out
+
+
+def attach_launch_shapes(records, out) -> None:
+    """Add kernel_launch_shapes' times, bounds and floor to the records of
+    the kernels it timed."""
     for rec in records:
-        if rec["name"] in ("replay", "replay_tasks", "replay_wirec", "payload"):
-            rec["ms_at_launch_shapes"] = {k: v["ms"] for k, v in out["shapes"].items()
-                                          if v["kernel"] == rec["name"]}
-            rec["bound_ms_at_launch_shapes"] = {k: v["bound_ms"]
-                                                for k, v in out["shapes"].items()
-                                                if v["kernel"] == rec["name"]}
+        mine = {k: v for k, v in out["shapes"].items() if v["kernel"] == rec["name"]}
+        if mine:
+            rec["ms_at_launch_shapes"] = {k: v["ms"] for k, v in mine.items()}
+            rec["device_ms_at_launch_shapes"] = {k: v["device_ms"] for k, v in mine.items()}
+            rec["bound_ms_at_launch_shapes"] = {k: v["bound_ms"] for k, v in mine.items()}
             rec["launch_floor_ms"] = out["floor_ms"]
+            rec["launch_floor_device_ms"] = out["floor_device_ms"]
+        if rec["name"] == "rehome":
+            rec["staging_behind_kernel_a"] = out["rehome_staging"]
 
 
 #: trap_corpus's rows (a multiple of its six kinds) and events, and the
@@ -2532,8 +2782,9 @@ def main() -> int:
     p.add_argument("--small", action="store_true",
                    help="run every phase at a few thousand workflows")
     p.add_argument("--parent", metavar="DIR",
-                   help="the root of a checkout of another commit: its kernels A and B are "
-                        "built and timed beside this tree's in kernel_launch_shapes")
+                   help="the root of a checkout of another commit: its kernels A, B, G, I and "
+                        "A's generator reader are built and timed beside this tree's in "
+                        "kernel_launch_shapes")
     p.add_argument("--variants", action="store_true",
                    help="build VARIANTS of this tree's kernels and time them beside the port's "
                         "in kernel_launch_shapes")
@@ -2606,7 +2857,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             print("ptxas:", line.strip(), flush=True)
     if args.shapes_only:
-        launch_shapes_phase(args, encode_corpus(histories), dev, [])
+        launch_shapes_phase(args, encode_corpus(histories), dev)
         replay_traps(dev)
         print(smi)
         return 0
@@ -2998,11 +3249,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # kernels A and B at the shapes their launches have, and on their traps
-    launch_shapes_phase(args, events_np, dev, records)
+    shapes_out = launch_shapes_phase(args, events_np, dev)
     replay_traps(dev)
 
     # kernel I and kernel A's generator reader
-    gen_kernels(args, corp, dev, records)
+    gen_kernels(args, corp, dev, records,
+                shapes_out["gen_lanes_max_abs_err"][f"gen_lanes {GEN_CHECK_W}x{args.ns_events}"])
+    attach_launch_shapes(records, shapes_out)
 
     # --- north_star (ns-1m): the device generator fused into kernel A
     ns_launches, parity_launches, host_gen_launches = north_star(args, corp, dev)

@@ -375,3 +375,134 @@ def test_dice_layout_is_the_kernels():
         assert read[name] == (added - stored, lo, bits), name
         if name in drawn:
             assert drawn[name] == (salt, n, added), name
+
+
+# --- kernel I: blocks of LANES_WF workflows, steps in tiles of LANES_TILE ---
+
+T = tg.LANES_TILE
+TILE_W = (1, tg.LANES_WF - 1, tg.LANES_WF, tg.LANES_WF + 1)
+TILE_E = (1, T - 1, T, T + 1, 200)
+_JAX_TILE_LANES = {}
+
+
+def _jax_lanes_33(E):
+    """The JAX package's lanes of workflows 0..32 at E steps (a workflow's
+    lanes depend on (seed, index, E) alone, so narrower blocks are rows of
+    these), made once an E."""
+    if E not in _JAX_TILE_LANES:
+        _JAX_TILE_LANES[E] = np.asarray(jg.generate_lanes(42, 0, tg.LANES_WF + 1, E))
+    return _JAX_TILE_LANES[E]
+
+
+@pytest.mark.parametrize("E", TILE_E)
+@pytest.mark.parametrize("nw", TILE_W)
+def test_tiled_lanes_equal_jax(nw, E):
+    """One block and a part (33), a full block (32), one short (31) and one
+    workflow; one step, a tile less one, a tile, a tile and one, 200 steps:
+    kernel I's tiling gives the JAX package's lanes."""
+    got = tg.generate_lanes_tiled_plain(42, 0, nw, E, device=CPU).numpy()
+    assert got.shape == (nw, E, 18)
+    assert np.array_equal(got, _jax_lanes_33(E)[:nw])
+
+
+@pytest.mark.parametrize("first", [tg.LANES_WF - 1, tg.LANES_WF, 1_000_003, 2 ** 40])
+def test_tiled_lanes_first_index_seams(first):
+    """Blocks that start at any global workflow index give the JAX
+    package's lanes of those workflows."""
+    E = T + 3
+    want = np.asarray(jg.generate_lanes(7, first, 40, E))
+    assert np.array_equal(tg.generate_lanes_tiled_plain(7, first, 40, E, device=CPU).numpy(),
+                          want)
+
+
+def test_step_dice_are_the_packed_words():
+    """The draws gen_step makes for itself are the packed words' (with
+    step 0's started_a0 made once a workflow), so the tiled and the plain
+    steps see the same values."""
+    for step in (0, 1, 77):
+        made = tg.step_dice(42, 5, 9, step, CPU)
+        packed = tg.unpack_dice(tg.pack_dice_plain(42, 5, 9, step, 1)[0])
+        for name in tg.DICE_FIELDS:
+            assert torch.equal(made[name], packed[name]), (step, name)
+    w = torch.arange(9, dtype=torch.int64) + 5
+    assert torch.equal(tg.step_dice(42, 5, 9, 0, CPU)["started_a0"],
+                       600 + tg._die(tg._mix(42, w, 0, 3), 6600))
+
+
+def test_lanes_tile_constants_are_the_kernels():
+    """LANES_WF and LANES_TILE are csrc/genkernel.cu's."""
+    import re
+
+    consts = dict(re.findall(r"constexpr int (LANES_\w+) = (\d+);", _csrc("genkernel.cu")))
+    assert (int(consts["LANES_WF"]), int(consts["LANES_TILE"])) == (tg.LANES_WF, tg.LANES_TILE)
+
+
+# --- kernel I compiled for the host: csrc/genkernel.cu's own phases
+# (draws packed per tile, choose and act_all stepping into the shared tile,
+# its 16-byte stores), each block's phases in order and every thread of a
+# phase before the next, as the kernel's barriers order them. The card's
+# compile and launch are held by chip_smoke.py alone.
+
+I_HARNESS = r"""
+extern "C" int host_gen_lanes(int64_t seed, int64_t first_index, int64_t W, int64_t E,
+                              int64_t* out) {
+  std::vector<int64_t> smem(2 * TILE_WORDS + 2 * DICE_WORDS, 0x5a5a5a5a);
+  std::vector<Stepper> st(LANES_THREADS);
+  uint64_t* dice = reinterpret_cast<uint64_t*>(smem.data() + 2 * TILE_WORDS);
+  const int64_t tiles = (E + LANES_TILE - 1) / LANES_TILE;
+  for (int64_t w0 = 0; w0 < W; w0 += LANES_WF) {
+    const int nw = W - w0 < LANES_WF ? static_cast<int>(W - w0) : LANES_WF;
+    for (int64_t k = -1; k <= tiles; ++k)
+      for (int t = 0; t < LANES_THREADS; ++t)
+        lanes_phase(k, tiles, t, st[t], seed, first_index, w0, nw, E, smem.data(), dice, out);
+  }
+  return LANES_TILE;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_i(tmp_path_factory):
+    import ctypes
+
+    from tests.torch_parity import host_kernel
+
+    lib = host_kernel(tmp_path_factory.mktemp("genkernel"), "genkernel.cu", "__global__",
+                      I_HARNESS, close="}  // namespace\n")
+    LL = ctypes.c_int64
+    lib.host_gen_lanes.argtypes = [LL, LL, LL, LL, ctypes.c_void_p]
+    return lib
+
+
+def _host_lanes(lib, seed, first, nw, E):
+    """Kernel I compiled for the host: [nw, E, 18] lanes, every word first
+    set to a value the kernel must overwrite."""
+    out = torch.full((nw, E, 18), -12345, dtype=torch.int64)
+    assert lib.host_gen_lanes(tg._wrap(seed), first, nw, E, out.data_ptr()) == tg.LANES_TILE
+    return out.numpy()
+
+
+@pytest.mark.parametrize("E", TILE_E)
+@pytest.mark.parametrize("nw", TILE_W)
+def test_host_kernel_i_equals_jax(host_i, nw, E):
+    """One block and a part, a full block, one short and one workflow; one
+    step, a tile less one, a tile, a tile and one, 200 steps: the kernel's
+    lanes are the JAX package's."""
+    assert np.array_equal(_host_lanes(host_i, 42, 0, nw, E), _jax_lanes_33(E)[:nw])
+
+
+@pytest.mark.parametrize("first", [tg.LANES_WF - 1, tg.LANES_WF, 1_000_003, 2 ** 40])
+def test_host_kernel_i_first_index_seams(host_i, first):
+    """Blocks that start at any global workflow index give the JAX
+    package's lanes of those workflows."""
+    E = T + 3
+    assert np.array_equal(_host_lanes(host_i, 7, first, 40, E),
+                          np.asarray(jg.generate_lanes(7, first, 40, E)))
+
+
+@pytest.mark.parametrize("seed", [I64_MAX, I64_MIN, -5])
+def test_host_kernel_i_seeds_on_int64_edges(host_i, seed):
+    """Seeds on int64's edges, where the hashes wrap: the kernel's lanes are
+    the plain version's (held to the JAX package above)."""
+    assert np.array_equal(_host_lanes(host_i, seed, 5, 33, 40),
+                          tg.generate_lanes_plain(seed, 5, 33, 40, device=CPU).numpy())

@@ -207,3 +207,72 @@ def reference_native() -> None:
     jb._load_failed.clear()
     for load in (jb.load, jb.load_wirec, jb.load_generator):
         assert load() is not None, f"the JAX package's {load.__name__} found no library"
+
+
+#: A stand-in for the CUDA runtime, enough for a csrc/ kernel's device code
+#: to compile as host C++: the qualifiers empty, blockIdx and threadIdx
+#: globals that a host loop sets, CUDA's vector types, and the intrinsics
+#: the kernels use as the compiler's builtins or plain stores.
+HOST_CUDA_RUNTIME = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+#include <climits>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __shared__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+#define __align__(x) __attribute__((aligned(x)))
+struct uint3 { unsigned x, y, z; };
+inline uint3 blockIdx, threadIdx, blockDim;
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct longlong2 { long long x, y; };
+inline longlong2 make_longlong2(long long a, long long b) { return {a, b}; }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline void __syncthreads() {}
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+"""
+
+
+def host_kernel(tmp_dir, source: str, cut: str, harness: str, close: str = ""):
+    """A ctypes library of cadence_tpu_torch/csrc/`source` compiled as host
+    C++ against HOST_CUDA_RUNTIME: the file cut before the first `cut` (its
+    launchers, which only nvcc compiles), then `close` and `harness` (C++
+    that runs the kernel's blocks and threads in a host loop). Skips the
+    test when the machine has no C++ compiler."""
+    import ctypes
+    import pathlib
+    import shutil
+    import subprocess
+
+    import pytest
+
+    import cadence_tpu_torch
+
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    csrc = pathlib.Path(cadence_tpu_torch.__file__).parent / "csrc"
+    text = (csrc / source).read_text()
+    assert cut in text, f"{source} no longer has {cut!r}"
+    tmp = pathlib.Path(tmp_dir)
+    (tmp / "cuda_runtime.h").write_text(HOST_CUDA_RUNTIME)
+    src, lib = tmp / (source + ".cpp"), tmp / (source + ".so")
+    src.write_text(text[:text.index(cut)] + close + harness)
+    done = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(tmp), "-I",
+                           str(csrc), "-include", str(tmp / "cuda_runtime.h"), "-o", str(lib),
+                           str(src)], capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, f"{source} as host C++:\n{done.stderr[-4000:]}"
+    return ctypes.CDLL(str(lib))
