@@ -18,7 +18,9 @@ the host store into device-resident COLUMNS —
 - float64 numeric search-attribute columns (IEEE NaN = absent);
 
 — staged host→device through the wirec idiom (`native/wirec.stage_h2d`:
-fresh page-locked copies on a side stream; delta batches the same way),
+fresh page-locked copies on a side stream) at bootstrap and restage, and
+each delta batch packed into one reused page-locked block and copied
+once (ops/scan.py DeltaFeed),
 and serves queries by compiling the parsed AST
 (engine/visibility_query.py) into a plan that kernels J and K
 (ops/scan.py, csrc/scan.cu) evaluate per row; kernel L scatters delta
@@ -210,6 +212,8 @@ class DeviceVisibilityView:
         self._dev_valid = None
         self._need_restage = True
         self._changed_rows: set = set()
+        #: kernel L's feed (ops/scan.py DeltaFeed), made at the first delta
+        self._feed = None
 
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -459,26 +463,23 @@ class DeviceVisibilityView:
             return
         if not self._changed_rows:
             return
-        from ..ops.scan import pow2_bucket, scan_apply
+        from ..ops.scan import DeltaFeed, apply_layout, pack_delta, pow2_bucket
         rows = np.fromiter(self._changed_rows, dtype=np.int64,
                            count=len(self._changed_rows))
         self._changed_rows.clear()
         bucket = pow2_bucket(len(rows))
-        idx = np.full(bucket, self.capacity, dtype=np.int64)  # pad OOB
-        idx[:len(rows)] = rows
         order = self._col_order()
-        vals = []
-        for name in order:
-            col = self._host_col(name)
-            out = np.zeros(bucket, dtype=col.dtype)
-            out[:len(rows)] = col[rows]
-            vals.append(out)
-        vmask = np.zeros(bucket, dtype=bool)
-        vmask[:len(rows)] = self._valid[rows]
+        host = [self._host_col(name) for name in order] + [self._valid]
+        if self._feed is None:
+            self._feed = DeltaFeed(self.device)
+        # the delta packed into the feed's one page-locked block (indices
+        # padded out of range, then each column's values), one copy to the
+        # card, and kernel L writes the device columns in place
+        _, nbytes = apply_layout([c.itemsize for c in host], bucket)
+        pack_delta(self._feed.block(nbytes), rows, host, bucket,
+                   pad=self.capacity)
         cols = [self._dev_cols[name] for name in order] + [self._dev_valid]
-        staged = self._stage(vals + [vmask, idx])
-        # kernel L writes the device columns in place
-        scan_apply(cols, staged[-1], staged[:-1])
+        self._feed.send(cols, bucket)
 
     # -- query plan binding ------------------------------------------------
 

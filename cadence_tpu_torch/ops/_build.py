@@ -145,16 +145,21 @@ def _configure(lib: ctypes.CDLL) -> None:
     # state pointer table, seed, first index, W, E, K[5], B, Kv, threads a workflow, stream
     lib.cadence_replay_gen.argtypes = [P, L, L, L, L, P, I, I, I, P]
     lib.cadence_vis_mask.restype = I
-    # program table, columns, instructions, leaves, valid, N, count, bitmap (or null), stream
-    lib.cadence_vis_mask.argtypes = [P, I, I, I, P, L, P, P, P]
+    # host ValuePlan, valid, N, count, bitmap (or null), scratch, stream
+    lib.cadence_vis_mask.argtypes = [P, P, L, P, P, P, P]
+    lib.cadence_vis_mask_table.restype = I
+    # decoded plan table, entries, instructions, valid, N, count, bitmap (or null), scratch, stream
+    lib.cadence_vis_mask_table.argtypes = [P, I, I, P, L, P, P, P, P]
     lib.cadence_vis_topk.restype = I
-    # program table, columns, instructions, leaves, valid, start, N, k, scratch, ids, count,
-    # stream
-    lib.cadence_vis_topk.argtypes = [P, I, I, I, P, P, L, L, P, P, P, P]
+    # host ValuePlan, valid, start, N, k, scratch, ids, count, stream
+    lib.cadence_vis_topk.argtypes = [P, P, P, L, L, P, P, P, P]
+    lib.cadence_vis_topk_table.restype = I
+    # decoded plan table, entries, instructions, valid, start, N, k, scratch, ids, count, stream
+    lib.cadence_vis_topk_table.argtypes = [P, I, I, P, P, L, L, P, P, P, P]
     lib.cadence_vis_topk_scratch.restype = L
     lib.cadence_vis_topk_scratch.argtypes = [L, L]  # N, k
     lib.cadence_vis_apply.restype = I
-    # pointer table (columns, values, element sizes), C, idx, B, N, stream
+    # pointer table (columns, element sizes, value offsets), C, packed delta, B, N, stream
     lib.cadence_vis_apply.argtypes = [P, I, P, L, L, P]
 
 
@@ -178,11 +183,13 @@ def check(rc: int, what: str) -> None:
 #: launches of each kernel, counted by its wrapper where it launches and
 #: nowhere else (the plain versions never count)
 #: (kernel A's global route counts under its own names: replay_global,
-#: replay_tasks_global, replay_wirec_global)
+#: replay_tasks_global, replay_wirec_global; kernels J's and K's table
+#: route as vis_mask_table and vis_topk_table)
 launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "replay_global": 0,
             "replay_tasks_global": 0, "replay_wirec_global": 0, "payload": 0, "crc32": 0,
             "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0,
-            "gen_lanes": 0, "replay_gen": 0, "vis_mask": 0, "vis_topk": 0, "vis_apply": 0}
+            "gen_lanes": 0, "replay_gen": 0, "vis_mask": 0, "vis_mask_table": 0, "vis_topk": 0,
+            "vis_topk_table": 0, "vis_apply": 0}
 
 
 def reset_launches() -> None:
@@ -284,4 +291,5 @@ def launcher(name: str, fn, *args):
         launches[name] += 1
 
     launch.args = args  # the tensors the pointers point into live as long as the launch
+    launch.name = name
     return launch

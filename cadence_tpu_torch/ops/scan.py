@@ -13,24 +13,34 @@ The JAX package's ops/scan.py in two halves:
 
 The device half on the card (csrc/scan.cu):
 
-- `scan_count` and `scan_bitmap` are kernel J (`cadence_vis_mask`): the
-  plan's predicate per row, `& valid`, summed, and with a bitmap packed
-  1 bit a row in numpy's big bit order;
+- `scan_count` and `scan_bitmap` are kernel J: the plan's predicate per
+  row, `& valid`, summed, and with a bitmap packed 1 bit a row in numpy's
+  big bit order. The count needs no memset: its scratch (the blocks'
+  tickets and count in one word) is zeroed once for each stream;
 - `scan_topk` is kernel K (`cadence_vis_topk`): the first k row ids in
   (matching first, start time descending, row ascending) order, and the
   count, by a radix select of the k-th row and a sort of the few rows at
   or before it (`topk_select_plain` states its stages in plain torch);
-- `scan_apply` is kernel L (`cadence_vis_apply`): one delta batch
-  scattered into every column, pads and out-of-range indices dropped.
+- `scan_apply` and `scan_apply_packed` are kernel L (`cadence_vis_apply`):
+  one delta batch scattered into every column, pads and out-of-range
+  indices dropped. The delta travels packed (`apply_layout`: the indices,
+  then each column's values) beside the columns' pointer table
+  (`apply_table`); `DeltaFeed` is the view's feed, one page-locked block
+  reused by every drain, one copy and one launch a drain.
 
-The plan reaches the kernels as a postfix program (`program`): one int64
-word per leaf or and/or node, the children of a node ordered so that the
-deeper one runs first, which keeps the evaluation stack at most
-log2(leaves) + 1 entries deep (kernel J holds it in one 64-bit
-register). On the CPU the wrappers run the plain versions below, which
-evaluate the same program with a stack of bool tensors; on the card they
-launch the kernel or raise. Each has a `*_launch` twin that makes every
-check and argument first and returns the launch (see _build.launcher).
+The plan reaches kernels J and K as a postfix program (`program`): one
+int64 word per leaf or and/or node, the children of a node ordered so that
+the deeper one runs first, which keeps the evaluation stack at most
+log2(leaves) + 1 entries deep (the kernels hold it in one 64-bit register
+a row). Both take it decoded (`decode_plan`) and by the same two routes
+(`plan_route`): by value in the launch's parameters (`cadence_vis_mask`,
+`cadence_vis_topk`; launch names "vis_mask", "vis_topk") up to
+PLAN_LEAVES leaves and PLAN_INS instructions, else as a device table (the
+`_table` entry points and launch names). On the CPU the wrappers run the plain versions below,
+which evaluate the same program with a stack of bool tensors; on the card
+they launch the kernel or raise. Each has a `*_launch` twin that makes
+every check and argument first and returns the launch (see
+_build.launcher).
 
 Host parity is the contract: every op code reproduces the host
 evaluator's semantics exactly — missing values never match, IEEE NaN
@@ -43,6 +53,7 @@ falls back to the host path (counted, never silently divergent).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Sequence, Tuple
 
@@ -262,6 +273,75 @@ def program(plan: ScanPlan) -> Tuple[list, int]:
     return words, depth
 
 
+# Kernel J's constants (csrc/scan.cu): threads a block, rows a lane takes
+# in a warp's tile, the by-value plan's capacity, the count's scratch bytes
+# (one word: tickets and the count so far).
+MASK_THREADS = 256
+MASK_ROWS = 4
+PLAN_LEAVES = 32
+PLAN_INS = 64
+MASK_SCRATCH_BYTES = 8
+#: kernel L's threads a block (a block is one column's rows)
+APPLY_THREADS = 256
+
+
+class ValuePlan(ctypes.Structure):
+    """csrc/scan.cu's ValuePlan: the decoded plan kernel J takes by value."""
+    _fields_ = [("col", ctypes.c_int64 * PLAN_LEAVES), ("param", ctypes.c_int64 * PLAN_LEAVES),
+                ("code", ctypes.c_int32 * PLAN_LEAVES), ("n_ins", ctypes.c_int32),
+                ("n_entries", ctypes.c_int32), ("ins", ctypes.c_uint8 * PLAN_INS)]
+
+
+def decode_plan(plan: ScanPlan, cols) -> Tuple[list, list]:
+    """(entries, instructions) of the plan's program as kernel J runs it:
+    an entry (column pointer, parameter as int64 bits, kind | op << 8) for
+    each leaf instruction in program order (the kernel tests entry e at
+    the e-th leaf instruction and loads the next ones ahead), and each
+    instruction as tag | entry << 3 (the constants and and/or keep their
+    tags)."""
+    words, _ = program(plan)
+    fbits = np.asarray(plan.fparams, dtype=np.float64).view(np.int64)
+    entries, ins = [], []
+    for w in words:
+        tag = w & 0xFF
+        if tag == T_LEAF:
+            kind, op, slot, leaf = (w >> 8) & 0xFF, (w >> 16) & 0xFF, (w >> 24) & 0xFFFF, w >> 40
+            param = fbits[leaf] if kind == KIND_CODE[COL_F64] else plan.iparams[leaf]
+            ins.append(T_LEAF | len(entries) << 3)
+            entries.append((cols[slot].data_ptr(), int(param), kind | op << 8))
+        else:
+            ins.append(tag)
+    return entries, ins
+
+
+def plan_route(entries, ins) -> str:
+    """The route of decode_plan's output into kernels J and K: "value" (in
+    the launch's parameters) when it has at most PLAN_LEAVES entries and
+    PLAN_INS instructions, else "table" (copied to the card)."""
+    return "value" if len(entries) <= PLAN_LEAVES and len(ins) <= PLAN_INS else "table"
+
+
+def value_plan(entries, ins) -> ValuePlan:
+    """The by-value form of decode_plan's output."""
+    if len(entries) > PLAN_LEAVES or len(ins) > PLAN_INS:
+        raise ValueError(f"{len(entries)} leaves, {len(ins)} instructions: past the by-value "
+                         f"plan's {PLAN_LEAVES} and {PLAN_INS}")
+    vp = ValuePlan()
+    for e, (col, param, code) in enumerate(entries):
+        vp.col[e], vp.param[e], vp.code[e] = col, param, code
+    vp.n_ins, vp.n_entries = len(ins), len(entries)
+    for i, w in enumerate(ins):
+        vp.ins[i] = w
+    return vp
+
+
+def table_plan(entries, ins) -> list:
+    """The device-table form of decode_plan's output: [columns][parameters]
+    [codes][instructions], int64 each."""
+    return ([c for c, _, _ in entries] + [p for _, p, _ in entries] + [k for _, _, k in entries]
+            + list(ins))
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and what chip_smoke.py holds each kernel to)
 # ---------------------------------------------------------------------------
@@ -451,6 +531,65 @@ def scan_apply_plain(cols: Sequence[torch.Tensor], idx: torch.Tensor,
     return tuple(cols)
 
 
+def apply_layout(sizes: Sequence[int], b: int) -> Tuple[list, int]:
+    """(each column's value offset, total bytes) of a packed delta of b
+    rows for columns of these element sizes: b int64 indices, then each
+    column's b values in column order. The sizes are 8 or 1, 8-byte
+    columns first, so that every 8-byte block stays aligned."""
+    if any(sz not in (1, 8) for sz in sizes) or list(sizes) != sorted(sizes, reverse=True):
+        raise ValueError(f"apply_layout: element sizes {list(sizes)}; kernel L takes 8-byte "
+                         f"columns, then 1-byte ones")
+    offsets, off = [], 8 * b
+    for sz in sizes:
+        offsets.append(off)
+        off += sz * b
+    return offsets, off
+
+
+def pack_delta(block: np.ndarray, rows: np.ndarray, host_cols: Sequence[np.ndarray], b: int,
+               pad: int) -> None:
+    """Pack one delta into `block` (uint8, apply_layout's bytes): the
+    changed rows' indices padded to b with `pad` (past every column, so
+    dropped), then each host column's values at those rows."""
+    offsets, total = apply_layout([c.itemsize for c in host_cols], b)
+    n = len(rows)
+    idx = block[:8 * b].view(np.int64)
+    idx[:n] = rows
+    idx[n:] = pad
+    for off, col in zip(offsets, host_cols):
+        block[off:off + col.itemsize * b].view(col.dtype)[:n] = col[rows]
+
+
+def scan_apply_packed_plain(cols: Sequence[torch.Tensor], block: torch.Tensor,
+                            b: int) -> Tuple[torch.Tensor, ...]:
+    """Kernel L's packed form in plain torch: the indices and each column's
+    values read from `block` (uint8, apply_layout's bytes), then
+    scan_apply_plain."""
+    offsets, _ = apply_layout([c.element_size() for c in cols], b)
+    idx = block[:8 * b].view(torch.int64)
+    vals = [block[off:off + c.element_size() * b].view(c.dtype) for off, c in zip(offsets, cols)]
+    return scan_apply_plain(cols, idx, vals)
+
+
+def apply_table(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Kernel L's pointer table for `cols` (8-byte columns first), on their
+    device: [C column pointers][C element sizes][C value offsets, bytes a
+    row before each column's values]. `key` names the columns it was built
+    for (pointer and size each)."""
+    sizes = [c.element_size() for c in cols]
+    offsets, _ = apply_layout(sizes, 1)
+    words = [c.data_ptr() for c in cols] + sizes + [off - 8 for off in offsets]
+    dev = cols[0].device
+    table = (_to_card(words, torch.int64, dev) if dev.type == "cuda"
+             else torch.tensor(words, dtype=torch.int64))
+    table.key = _table_key(cols)
+    return table
+
+
+def _table_key(cols) -> tuple:
+    return tuple((c.data_ptr(), c.element_size()) for c in cols)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the plain version on the CPU, kernels J, K and L on the card
 # ---------------------------------------------------------------------------
@@ -469,10 +608,10 @@ def _to_card(words, dtype, dev: torch.device) -> torch.Tensor:
     return torch.tensor(words, dtype=dtype).pin_memory().to(dev, non_blocking=True)
 
 
-def _program_args(plan: ScanPlan, cols, valid: torch.Tensor, what: str):
-    """(device table, column count, instruction count, leaf count) of
-    kernel J's and K's program, after checking every column: contiguous,
-    [N] on valid's card, int64 (id, i64) or float64 (f64)."""
+def _check_columns(plan: ScanPlan, cols, valid: torch.Tensor, what: str) -> None:
+    """Raise unless kernels J and K take these: N a multiple of 64 below
+    2^31, valid [N] bool, each column contiguous, [N] on valid's card, int64
+    (id, i64) or float64 (f64)."""
     n = valid.shape[0]
     if n < 64 or n % 64 or n >= 1 << 31:
         raise ValueError(f"{what}: {n} rows; the kernels take a multiple of 64 below 2^31")
@@ -486,11 +625,43 @@ def _program_args(plan: ScanPlan, cols, valid: torch.Tensor, what: str):
     for slot, col in enumerate(cols):
         dtype = torch.float64 if kinds.get(slot) == COL_F64 else torch.int64
         _build.require(col, dtype, (n,), f"{what} column {plan.slots[slot]!r}", valid.device)
-    words, _ = program(plan)
-    fbits = np.asarray(plan.fparams, dtype=np.float64).view(np.int64)
-    table = ([c.data_ptr() for c in cols] + words + [int(v) for v in plan.iparams]
-             + [int(v) for v in fbits])
-    return _to_card(table, torch.int64, valid.device), len(cols), len(words), len(plan.leaves)
+
+
+def _plan_launcher(name: str, plan: ScanPlan, cols, valid: torch.Tensor, *rest):
+    """Kernel `name` (vis_mask or vis_topk) for the plan, after checking
+    every column: the decoded plan by value (entry point cadence_<name>,
+    launch name `name`) or, past its capacity, as a device table
+    (cadence_<name>_table, `name`_table), followed by `rest`."""
+    _check_columns(plan, cols, valid, name)
+    entries, ins = decode_plan(plan, cols)
+    lib = _build.load()
+    if plan_route(entries, ins) == "value":
+        vp = value_plan(entries, ins)
+        launch = _build.launcher(name, getattr(lib, f"cadence_{name}"), ctypes.addressof(vp),
+                                 *rest)
+        launch.plan = vp  # the launch copies it into the kernel's parameters
+    else:
+        table = _to_card(table_plan(entries, ins), torch.int64, valid.device)
+        launch = _build.launcher(f"{name}_table", getattr(lib, f"cadence_{name}_table"), table,
+                                 len(entries), len(ins), *rest)
+    launch.outputs = tuple(cols)  # the plan points into them
+    return launch
+
+
+#: kernel J's count scratch (its blocks' tickets and count in one word),
+#: zeroed once for each (device, stream); the last block of every launch
+#: puts it back to 0
+_MASK_SCRATCH: dict = {}
+
+
+def _mask_scratch(dev: torch.device) -> torch.Tensor:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev, stream)
+    scratch = _MASK_SCRATCH.get(key)
+    if scratch is None:
+        scratch = torch.zeros(MASK_SCRATCH_BYTES, dtype=torch.uint8, device=dev)
+        _MASK_SCRATCH[key] = scratch
+    return scratch
 
 
 def scan_count(plan: ScanPlan, cols, valid: torch.Tensor) -> torch.Tensor:
@@ -528,14 +699,11 @@ def scan_bitmap_launch(plan: ScanPlan, cols, valid: torch.Tensor):
 
 
 def _mask_launch(plan, cols, valid, bitmap: bool):
-    table, n_cols, n_ins, n_leaves = _program_args(plan, cols, valid, "scan")
-    n = valid.shape[0]
-    count = torch.empty((), dtype=torch.int64, device=valid.device)
-    bits = torch.empty((n // 8,), dtype=torch.uint8, device=valid.device) if bitmap else None
-    launch = _build.launcher("vis_mask", _build.load().cadence_vis_mask, table, n_cols, n_ins,
-                             n_leaves, valid, n, count, bits if bitmap else None,
-                             _build.stream_of(valid))
-    launch.outputs = tuple(cols)  # the pointer table points into them
+    n, dev = valid.shape[0], valid.device
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    bits = torch.empty((n // 8,), dtype=torch.uint8, device=dev) if bitmap else None
+    launch = _plan_launcher("vis_mask", plan, cols, valid, valid, n, count, bits,
+                            _mask_scratch(dev), _build.stream_of(valid))
     return launch, (bits, count)
 
 
@@ -554,7 +722,6 @@ def scan_topk_launch(plan: ScanPlan, k: int, cols, valid: torch.Tensor, start: t
     """Check what kernel K takes; return (its launch, (ids, count)). Its
     scratch (the select's state, a bitmap and the candidates, about N/8
     bytes; or 12 bytes a row for the full sort) is allocated here."""
-    table, n_cols, n_ins, n_leaves = _program_args(plan, cols, valid, "scan_topk")
     n = valid.shape[0]
     if not 0 < k <= n:
         raise ValueError(f"scan_topk: k = {k} for {n} rows")
@@ -567,9 +734,8 @@ def scan_topk_launch(plan: ScanPlan, k: int, cols, valid: torch.Tensor, start: t
     scratch = torch.empty((lib.cadence_vis_topk_scratch(n, k),), dtype=torch.uint8, device=dev)
     ids = torch.empty((k,), dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    launch = _build.launcher("vis_topk", lib.cadence_vis_topk, table, n_cols, n_ins, n_leaves,
-                             valid, start, n, k, scratch, ids, count, _build.stream_of(valid))
-    launch.outputs = tuple(cols)
+    launch = _plan_launcher("vis_topk", plan, cols, valid, valid, start, n, k, scratch, ids, count,
+                            _build.stream_of(valid))
     return launch, (ids, count)
 
 
@@ -589,8 +755,9 @@ def scan_apply(cols: Sequence[torch.Tensor], idx: torch.Tensor,
 
 def scan_apply_launch(cols: Sequence[torch.Tensor], idx: torch.Tensor,
                       vals: Sequence[torch.Tensor]):
-    """Check what kernel L takes; return (its launch, the columns it
-    writes in place)."""
+    """Check what kernel L takes; pack the delta on the card (8-byte
+    columns first) beside a pointer table; return (its launch, the columns
+    it writes in place)."""
     if not cols or len(cols) != len(vals):
         raise ValueError(f"scan_apply: {len(cols)} columns, {len(vals)} value tensors")
     n, b = cols[0].shape[0], idx.shape[0]
@@ -600,10 +767,103 @@ def scan_apply_launch(cols: Sequence[torch.Tensor], idx: torch.Tensor,
             raise ValueError(f"scan_apply: column {i} has {c.element_size()}-byte elements")
         _build.require(c, c.dtype, (n,), f"scan_apply column {i}", idx.device)
         _build.require(v, c.dtype, (b,), f"scan_apply values {i}", idx.device)
-    table = _to_card([c.data_ptr() for c in cols] + [v.data_ptr() for v in vals]
-                     + [c.element_size() for c in cols], torch.int64, idx.device)
+    order = sorted(range(len(cols)), key=lambda i: -cols[i].element_size())
+    ordered = [cols[i] for i in order]
+    packed = torch.cat([idx.view(torch.uint8)] + [vals[i].view(torch.uint8) for i in order])
+    table = apply_table(ordered)
     launch = _build.launcher("vis_apply", _build.load().cadence_vis_apply, table, len(cols),
-                             idx, b, n, _build.stream_of(idx))
-    launch.outputs = tuple(cols) + tuple(vals)
+                             packed, b, n, _build.stream_of(idx))
+    launch.outputs = tuple(cols)
     return launch, tuple(cols)
 
+
+def scan_apply_packed(cols: Sequence[torch.Tensor], table: torch.Tensor, block: torch.Tensor,
+                      dev_block, b: int) -> Tuple[torch.Tensor, ...]:
+    """Scatter a packed delta of b rows (`block`: host uint8, apply_layout's
+    bytes) into `cols` in place: on the card one copy of the block into
+    `dev_block` and one launch of kernel L with `table` (apply_table of
+    these columns); on the CPU scan_apply_packed_plain. Returns the
+    columns."""
+    if _device_of(cols[0], "scan_apply_packed").type == "cpu":
+        return scan_apply_packed_plain(cols, block, b)
+    with torch.cuda.device(cols[0].device):
+        launch, out = apply_packed_launch(cols, table, block, dev_block, b)
+        launch()
+    return out
+
+
+def apply_packed_launch(cols: Sequence[torch.Tensor], table: torch.Tensor, block: torch.Tensor,
+                        dev_block: torch.Tensor, b: int):
+    """Check what kernel L takes; return (the launch: the block's copy to
+    the card, then kernel L; the columns it writes in place). The launch's
+    `copy` is its first step alone, `args` and `name` its kernel's."""
+    if not cols:
+        raise ValueError("scan_apply_packed: no columns")
+    n, dev = cols[0].shape[0], cols[0].device
+    _, nbytes = apply_layout([c.element_size() for c in cols], b)
+    for i, c in enumerate(cols):
+        _build.require(c, c.dtype, (n,), f"scan_apply_packed column {i}", dev)
+    if getattr(table, "key", None) != _table_key(cols):
+        raise ValueError("scan_apply_packed: the pointer table was built for other columns")
+    _build.require(table, torch.int64, (3 * len(cols),), "scan_apply_packed table", dev)
+    if block.device.type != "cpu" or block.dtype != torch.uint8 or block.numel() < nbytes:
+        raise ValueError(f"scan_apply_packed: the block must hold {nbytes} host bytes")
+    if dev_block.device != dev or dev_block.dtype != torch.uint8 or dev_block.numel() < nbytes:
+        raise ValueError(f"scan_apply_packed: the device block must hold {nbytes} bytes on {dev}")
+    run = _build.launcher("vis_apply", _build.load().cadence_vis_apply, table, len(cols),
+                          dev_block, b, n, _build.stream_of(dev_block))
+    src, dst = block[:nbytes], dev_block[:nbytes]
+
+    def copy():
+        dst.copy_(src, non_blocking=True)
+
+    def launch():
+        copy()
+        run()
+
+    launch.copy, launch.args, launch.name = copy, run.args, run.name
+    launch.outputs = tuple(cols)
+    return launch, tuple(cols)
+
+
+class DeltaFeed:
+    """Kernel L's feed for one view: a host block (page-locked for a card)
+    that every drain packs its delta into, reused and grown by doubling;
+    its twin on the card; and the columns' pointer table on the card,
+    rebuilt only when the columns change (another pointer or size: a
+    restage, growth, a new attribute column). A drain is one copy and one
+    launch."""
+
+    def __init__(self, device) -> None:
+        self.device = torch.device(device)
+        self._host = None
+        self._dev = None
+        self._copied = None  # the event after the last copy out of the host block
+        self.table = None
+        #: pointer tables built so far
+        self.table_builds = 0
+
+    def block(self, nbytes: int) -> np.ndarray:
+        """The host block's first nbytes as uint8, once the last copy out
+        of it is done."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        if self._host is None or self._host.numel() < nbytes:
+            cap = max(nbytes, 2 * self._host.numel() if self._host is not None else 0)
+            self._host = torch.empty(cap, dtype=torch.uint8,
+                                     pin_memory=self.device.type == "cuda")
+        return self._host.numpy()[:nbytes]
+
+    def send(self, cols: Sequence[torch.Tensor], b: int) -> Tuple[torch.Tensor, ...]:
+        """Apply the packed delta of b rows in the block to `cols`."""
+        if self.table is None or self.table.key != _table_key(cols):
+            self.table = apply_table(cols)
+            self.table_builds += 1
+        if self.device.type == "cpu":
+            return scan_apply_packed(cols, self.table, self._host, None, b)
+        if self._dev is None or self._dev.numel() < self._host.numel():
+            self._dev = torch.empty(self._host.numel(), dtype=torch.uint8, device=self.device)
+        out = scan_apply_packed(cols, self.table, self._host, self._dev, b)
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(self.device))
+        return out

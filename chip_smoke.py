@@ -6,10 +6,12 @@
                                      # (the north star at 16,384 x 200)
     python3 chip_smoke.py --shapes-only  # the suites corpus, the build,
                                      # kernel_launch_shapes and kernel_replay_traps
-    python3 chip_smoke.py --parent DIR [--variants]  # also time another checkout's
-                                     # kernels A, B, G, I and A's generator
-                                     # reader (and VARIANTS) in
-                                     # kernel_launch_shapes
+    python3 chip_smoke.py --visibility-only  # the build, kernel_vis, vis_staging
+                                     # and visibility_path
+    python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
+                                     # checkout's kernels A, B, G, I, J, K, L and
+                                     # A's generator reader (and VARIANTS) in
+                                     # kernel_launch_shapes and kernel_vis
 
 Phases, one JSON line each:
   1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
@@ -79,8 +81,19 @@ Phases, one JSON line each:
      and at 131,072 x 1,000 (the north star's chunks); each beside its
      bound and the launch floor (a one-element add_ timed the same way), as
      the host launches it and (device_ms) behind a queued spin kernel, the
-     card's time alone; with --parent DIR and --variants, other builds on
-     the same arguments, held equal and timed in the same call.
+     card's time alone; kernel J over visibility_path's 2^21-row view
+     (its write burst's three Count plans, and bench.py's six queries as
+     bitmaps) and kernel L through the view's own feed (the packed block's
+     copy and the launch) at its drains' shapes (a 64-row bucket holding
+     one changed row x the view's 10 and 11 columns, a 4,096-row backlog
+     bucket x 10) and through scan_apply at 512 and 65,536 rows x 24
+     columns, each equal byte for byte to its plain version; vis_staging,
+     the host's time in a one-row drain (kernel L's feed) and in one Count
+     through int(), behind a queued spin kernel, and the view's device
+     columns held to its host columns after one-row, backlog and
+     new-column drains; with --parent DIR and --variants, other builds on
+     the same arguments (the same entry points), held equal and timed in
+     the same call.
      kernel_replay_traps: kernel A (every reader, with and without tasks)
      and kernel B against their plain versions on gen/lanes.py
      trap_corpus states at x1, x2, x4 and x8 and random lanes at x8, every
@@ -163,8 +176,9 @@ Phases, one JSON line each:
  10. kernel_vis: kernels J (vis_mask: count and bitmap), K (vis_topk) and
      L (vis_apply) on the device visibility table at 16,777,216 rows (7
      builtin and 16 attribute columns, 3.1 GB, bench.py's population shape
-     from seed 20260804): bench.py's six selectivity queries and a 12-leaf
-     and/or plan through J and through K at k = 128 and 4,096; K on
+     from seed 20260804): bench.py's six selectivity queries, a 12-leaf
+     and/or plan and a 40-leaf one (J's table route) through J and through
+     K at k = 128 and 4,096; K on
      half_open, the and/or plan and a ties table (half_open over 16 start
      times) at k = 1, 101, 128, 4,096 and 16,384 (above the select route:
      the full sort), timed beside its byte bound, torch.sort and torch.topk
@@ -179,7 +193,10 @@ Phases, one JSON line each:
      count as fallback-predicate; with parity off, Count and List timed
      beside the host's Count (equal); then 4,096 closes, 1,024 upserts of a
      new attribute (a restage) and 512 deletes, each read back by a Count
-     with parity on. Parity divergence must be 0.
+     with parity on. Parity divergence must be 0. Prints the shape of
+     every J, K and L launch of the run (launch_shapes). With --parent, the
+     parent's J (count and bitmap), K (k = 1, 101, 128, 4,096) and L are
+     held equal and timed beside this tree's in kernel_vis.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
 rebuild_path, verify_path, resident_path, serving_path, visibility_path)
@@ -281,6 +298,8 @@ VISIBILITY_PATH_KERNELS = ("vis_mask", "vis_topk", "vis_apply")
 #: the queries timed at each (and the ties table), and K's functions
 TOPK_KS = (1, 101, 128, 4096, 16384)
 TOPK_TIMED = ("half_open", "and_or_12")
+#: kernel K's functions (the plan's two instances: the by-value ones are
+#: reported)
 TOPK_FUNCTIONS = ("topk_scan_kernel", "topk_hist_kernel", "topk_compact_kernel",
                   "topk_sort_kernel", "vis_keys_kernel", "bitonic_tile_kernel",
                   "bitonic_global_kernel")
@@ -840,6 +859,8 @@ def kernel_record(name, source, replaces, launches, err, ms, plain_ms, nbytes, o
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": library_ms}
+    if "route" in extra:
+        raise ValueError("kernel_record: `route` names the kernel's language (cuda or triton)")
     rec.update(extra)
     return rec
 
@@ -1336,16 +1357,25 @@ def vis_table(n: int, seed: int):
 
 
 def vis_queries(n: int):
-    """bench.py's six selectivity queries (bench.py:757-765) at n rows, and
-    one and/or plan of 12 leaves over 12 columns."""
+    """bench.py's six selectivity queries (bench.py:757-765) at n rows, one
+    and/or plan of 12 leaves over 12 columns, and one of 40 leaves (past
+    kernel J's by-value plan: its table route)."""
     cut99 = 1_700_000_000_000_000_000 + int(n * 0.999) * 1000
+    wide = " OR ".join(f"(F{k % 7} > {0.05 * k:.2f} AND S{k % 7} != 's{k}')" for k in range(20))
     return [("all", ""), ("half_open", "CloseStatus = -1"),
             ("type_eighth", "WorkflowType = 'wt-3'"), ("attr_tenth", "Priority >= 9"),
             ("narrow_and", "WorkflowType = 'wt-1' AND CloseStatus = 0 AND Priority < 2"),
             ("time_tail", f"StartTime > {cut99}"),
             ("and_or_12", "(F0 > 0.5 AND S0 = 's3') OR (F1 < -1 AND S1 != 's7') OR "
                           "(F2 >= 0 AND S2 = 's1' AND F3 <= 1) OR (S3 = 's9' AND F4 != 0.25) "
-                          "OR (F5 > 2 AND CloseTime > 0) OR S4 = 's2'")]
+                          "OR (F5 > 2 AND CloseTime > 0) OR S4 = 's2'"),
+            ("wide_40", wide)]
+
+
+def mask_bytes(plan, valid) -> int:
+    """Kernel J's bytes on this data: every valid byte, and each plan
+    column at the valid rows (a row that is not valid reads no column)."""
+    return valid.shape[0] + int(valid.sum()) * 8 * len(plan.slots)
 
 
 def check_topk(plan, k, cols, valid, start, order, count: int, name: str) -> int:
@@ -1386,6 +1416,43 @@ def time_topk(plan, k, cols, valid, start, mask) -> dict:
     return rec
 
 
+#: the k at which kernel_vis times the parent's kernel K beside this tree's
+PARENT_KS = (1, 101, 128, 4096)
+#: the parent's kernel libraries built in this run, by their sources
+_PARENT_LIBS = {}
+
+
+def parent_scan_lib(args):
+    """The --parent checkout's scan.cu built with nvcc (once a run), or
+    None without --parent."""
+    if not args.parent:
+        return None
+    if "scan" not in _PARENT_LIBS:
+        csrc = os.path.join(args.parent, "cadence_tpu_torch", "csrc")
+        _PARENT_LIBS["scan"] = build_entries(csrc, ["scan.cu"])[0]
+    return _PARENT_LIBS["scan"]
+
+
+def parent_ms(lib, make, check, what: str, inner: int = 1):
+    """The parent's kernel on the port's launch arguments (its entry point,
+    the same signature): make() gives (the port's launch, its outputs), which
+    check(outputs) holds to the plain version before the parent's launch is
+    timed. None where the parent's entry point has another signature."""
+    def made():
+        run, out = make()
+        go = rebind(run, lib, run.name)
+        go.out = out
+        return go
+
+    go = made()
+    if ENTRY[go.launch.name] not in lib.entries:
+        return None  # the parent's entry point has another signature
+    go()
+    if not check(go.out):
+        fail(f"kernel_vis {what}: the parent's kernel differs from the plain version")
+    return cuda_ms(lambda go: go(), setup=made, inner=inner)
+
+
 def kernel_vis(args, dev, records):
     """Kernels J, K and L against their plain versions (exactly) on the
     columnar table at args.vis_rows rows, each launch timed between CUDA
@@ -1412,12 +1479,18 @@ def kernel_vis(args, dev, records):
         scoped = Cmp("__domain__", "=", "bench")
         plans[name] = S.compile_plan(And(scoped, node) if node is not None else scoped, binder)
     start = cols["start_time"]
+    parent = parent_scan_lib(args)
     out = {}
     err = {"J": 0, "K": 0, "L": 0}  # values that differ from the plain version
     for name, plan in plans.items():
         pc = [cols[s] for s in plan.slots]
         want = S.scan_count_plain(plan, pc, valid)
+        route = S.plan_route(*S.decode_plan(plan, pc))
+        table_launches = _build.launches["vis_mask_table"]
         got = S.scan_count(plan, pc, valid)
+        on_table = _build.launches["vis_mask_table"] == table_launches + 1
+        if name == "wide_40" and (route != "table" or (dev.type == "cuda" and not on_table)):
+            fail("kernel_vis wide_40: kernel J did not take its table route")
         bits, c_b = S.scan_bitmap(plan, pc, valid)
         want_bits, _ = S.scan_bitmap_plain(plan, pc, valid)
         err["J"] = max(err["J"], abs(int(got) - int(want)), max_abs_err(bits, want_bits))
@@ -1425,21 +1498,40 @@ def kernel_vis(args, dev, records):
             fail(f"kernel_vis {name}: kernel J differs from its plain version "
                  f"({int(got)}, {int(c_b)} against {int(want)})")
         rec = {"leaves": len(plan.leaves), "columns": len(plan.slots), "count": int(want),
+               "j_route": route,
                "j_count_ms": cuda_ms(launch, setup=lambda: S.scan_count_launch(plan, pc, valid)[0],
                                      inner=5),
                "j_bitmap_ms": cuda_ms(launch, setup=lambda: S.scan_bitmap_launch(plan, pc,
                                                                                  valid)[0],
                                       inner=5)}
-        col_bytes = n * (8 * len(plan.slots) + 1)
+        if parent is not None:  # the parent's J on the same arguments, held equal first
+            rec["parent_j_count_ms"] = parent_ms(
+                parent, lambda: S.scan_count_launch(plan, pc, valid),
+                lambda c: int(c) == int(want), f"{name} J", inner=5)
+            rec["parent_j_bitmap_ms"] = parent_ms(
+                parent, lambda: S.scan_bitmap_launch(plan, pc, valid),
+                lambda out: torch.equal(out[0], want_bits) and int(out[1]) == int(want),
+                f"{name} J", inner=5)
+        col_bytes = mask_bytes(plan, valid)
         rec["j_count_bound_ms"] = col_bytes / HBM_BYTES_PER_S * 1e3
         rec["j_bitmap_bound_ms"] = (col_bytes + n // 8) / HBM_BYTES_PER_S * 1e3
         mask = S.mask_plain(plan, pc, valid)
         order = S.topk_order_plain(mask, start)
-        for k in (TOPK_KS if name in TOPK_TIMED else (128, 4096)):
+        ks = TOPK_KS if name in TOPK_TIMED else (128, 4096)
+        table_launches = _build.launches["vis_topk_table"]
+        for k in ks:
             err["K"] = max(err["K"], check_topk(plan, k, pc, valid, start, order, int(want),
                                                 name))
             if name in TOPK_TIMED:
                 rec[f"k{k}"] = time_topk(plan, k, pc, valid, start, mask)
+                if parent is not None and k in PARENT_KS:
+                    rec[f"k{k}"]["parent_ms"] = parent_ms(
+                        parent, lambda: S.scan_topk_launch(plan, k, pc, valid, start),
+                        lambda out: torch.equal(out[0], order[:k]) and int(out[1]) == int(want),
+                        f"{name} K at k={k}")
+        if name == "wide_40" and dev.type == "cuda" and (
+                _build.launches["vis_topk_table"] != table_launches + len(ks)):
+            fail("kernel_vis wide_40: kernel K did not take its table route")
         out[name] = rec
         del mask, order
     # K on the ties table: half_open over a start column of 16 values
@@ -1498,18 +1590,21 @@ def kernel_vis(args, dev, records):
     k128 = out["half_open"]["k128"]
     records.append(kernel_record(
         "vis_mask", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:260", None, err["J"],
-        out["narrow_and"]["j_count_ms"], ms_jp, n * (8 * len(jp.slots) + 1),
+        out["narrow_and"]["j_count_ms"], ms_jp, mask_bytes(jp, valid),
         n * 12 * len(jp.leaves), also_replaces=["cadence_tpu/ops/scan.py:273"], rows=n,
-        query="narrow_and", ptxas=ptxas_usage(_build.build_log, "vis_mask_kernel")))
+        query="narrow_and", plan_route=S.plan_route(*S.decode_plan(jp, jc)),
+        rows_per_lane=S.MASK_ROWS,
+        ptxas=jl_ptxas(_build.build_log)["vis_mask"]))
     k_cols = len(set(kp.slots) | {"start_time"})
     records.append(kernel_record(
         "vis_topk", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:288", None, err["K"],
         k128["ms"], ms_kp, n * (8 * k_cols + 1) + 8 * 128, 0, k128["topk_ms"], rows=n, k=128,
-        query="half_open", route=k128["route"],
+        query="half_open", topk_route=k128["route"],
         library="torch.topk(keys, k, largest=False), non-matching rows keyed to INT64_MAX",
         yardstick="torch.sort(stable) of the int64 -start keys", yardstick_ms=k128["sort_ms"],
         by_k={k: out["half_open"][f"k{k}"] for k in TOPK_KS},
-        ptxas={f: ptxas_usage(_build.build_log, f) for f in TOPK_FUNCTIONS}))
+        ptxas={f: ptxas_usage(_build.build_log, f, "ValuePlan") or ptxas_usage(_build.build_log, f)
+               for f in TOPK_FUNCTIONS}))
     # L: delta batches of 512 and 65,536 rows, with pads (index N) and one
     # negative index, into all 23 columns and valid, against the plain
     # version on a copy of the table
@@ -1542,6 +1637,11 @@ def kernel_vis(args, dev, records):
         elem = sum(t.element_size() for t in targets)
         apply[b] = {"ms": cuda_ms(launch, setup=lambda: S.scan_apply_launch(targets, idx,
                                                                             vals)[0], inner=20),
+                    "parent_ms": None if parent is None else parent_ms(
+                        parent, lambda: S.scan_apply_launch([t.clone() for t in copies], idx,
+                                                            vals),
+                        lambda out: all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                                        for x, y in zip(out, copies)), f"L at B={b}", inner=20),
                     "plain_ms": cuda_ms(lambda _: S.scan_apply_plain(copies, idx, vals)),
                     "index_copy_ms": cuda_ms(lambda _: [c.index_copy_(0, rows_t, v) for c, v in
                                                          zip(copies, vals_t)], inner=5),
@@ -1551,11 +1651,56 @@ def kernel_vis(args, dev, records):
         "vis_apply", "cadence_tpu_torch/csrc/scan.cu", "cadence_tpu/ops/scan.py:310", None, err["L"],
         a["ms"], a["plain_ms"], 65536 * 8 + 2 * (65536 - 4096) * sum(
             t.element_size() for t in targets), 0, rows=65536, columns=len(targets),
-        yardstick="index_copy_ of each column", yardstick_ms=a["index_copy_ms"]))
+        yardstick="index_copy_ of each column", yardstick_ms=a["index_copy_ms"],
+        ptxas=jl_ptxas(_build.build_log)["vis_apply"]))
     emit("kernel_vis", rows=n, columns=len(targets), table_bytes=table_bytes,
          table_seconds=t_table, queries=out, apply=apply, max_abs_err=err)
     del cols, valid, targets, copies, start
     torch.cuda.empty_cache()
+
+
+class VisShapeLog:
+    """While entered, counts the shape of every launch of kernels J, K and
+    L that ops/scan.py makes: J's (N, plan columns, count or bitmap), K's
+    (N, k) and L's (B, C), by wrapping the functions that build those
+    launches (L's: the view's feed, apply_packed_launch)."""
+
+    WRAPPED = ("_mask_launch", "scan_topk_launch", "apply_packed_launch")
+
+    def __enter__(self):
+        from cadence_tpu_torch.ops import scan as S
+
+        self.mask, self.topk, self.apply = (collections.Counter() for _ in range(3))
+        self.saved = {n: getattr(S, n) for n in self.WRAPPED}
+        log = self
+
+        def mask(plan, cols, valid, bitmap):
+            log.mask[(valid.shape[0], len(cols), "bitmap" if bitmap else "count")] += 1
+            return log.saved["_mask_launch"](plan, cols, valid, bitmap)
+
+        def topk(plan, k, cols, valid, start):
+            log.topk[(valid.shape[0], k)] += 1
+            return log.saved["scan_topk_launch"](plan, k, cols, valid, start)
+
+        def packed(cols, table, block, dev_block, b):
+            log.apply[(b, len(cols))] += 1
+            return log.saved["apply_packed_launch"](cols, table, block, dev_block, b)
+
+        for name, fn in zip(self.WRAPPED, (mask, topk, packed)):
+            setattr(S, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from cadence_tpu_torch.ops import scan as S
+
+        for name, fn in getattr(self, "saved", {}).items():
+            setattr(S, name, fn)
+        return False
+
+    def summary(self) -> dict:
+        key = lambda c: {" x ".join(map(str, k)): v for k, v in sorted(c.items())}  # noqa: E731
+        return {"vis_mask": key(self.mask), "vis_topk": key(self.topk),
+                "vis_apply": key(self.apply)}
 
 
 def visibility_path(args):
@@ -1576,6 +1721,7 @@ def visibility_path(args):
              "CADENCE_TPU_VISIBILITY_CAPACITY": str(n)}
     saved = {k: os.environ.get(k) for k in knobs}
     os.environ.update(knobs)
+    shape_log = VisShapeLog()
     try:
         t0 = time.perf_counter()
         vis = Stores().visibility
@@ -1600,6 +1746,7 @@ def visibility_path(args):
         M.DEFAULT_REGISTRY.reset()
         reg, sc = M.DEFAULT_REGISTRY, M.SCOPE_TPU_VISIBILITY
         torch.cuda.synchronize()
+        shape_log.__enter__()
         _build.reset_launches()
         t_start = time.perf_counter()
         os.environ["CADENCE_TPU_VISIBILITY_PARITY"] = "0"
@@ -1660,6 +1807,10 @@ def visibility_path(args):
             if vis.count("ties", "CloseStatus = -1") != len(ties) - i - 1:
                 fail("visibility_path: a close was not read back")
         t_close = time.perf_counter() - t1
+        # every column on the card against the host mirror, before the new
+        # attribute's restage rewrites them all
+        checked = {"after_close": view_columns_equal(vis._device, "visibility_path after the "
+                                                                  "close burst")}
         t1 = time.perf_counter()
         t_restage = None
         for i, (wf, run) in enumerate(ties[:1024]):
@@ -1677,11 +1828,14 @@ def visibility_path(args):
         t_delete = time.perf_counter() - t1
         torch.cuda.synchronize()
         t_path = time.perf_counter() - t_start
+        checked["after_delete"] = view_columns_equal(vis._device, "visibility_path after the "
+                                                                  "deletes")
         launches = dict(_build.launches)
         view = vis._device
         stats = view.stats()
         view.stop()
     finally:
+        shape_log.__exit__()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -1706,7 +1860,8 @@ def visibility_path(args):
          parity_divergence=stats["parity_divergence"], device_served=stats["device_served"],
          host_fallbacks=stats["host_fallbacks"], topk_escalations=stats["topk_escalations"],
          parity_checks=stats["parity_checks"], deltas_applied=stats["deltas_applied"],
-         drains=stats["drains"], launches=launches)
+         drains=stats["drains"], launches=launches, launch_shapes=shape_log.summary(),
+         columns_checked=checked)
     return launches
 
 
@@ -1935,24 +2090,28 @@ def gen_inline_draws(want, E: int, widths, tpws) -> dict:
 #: carried state; the resident and verify chunk; the bulk (suites-8k)
 FLUSH_SHAPES = ((8, 16), (64, 16), (128, 16), (64, 32))
 CHUNK_W = 4096
-#: the C entry point each launch name calls (the parent commit has the same
-#: signatures)
+#: the C entry point each launch name calls (a parent commit must have the
+#: same signatures)
 ENTRY = {"replay": "cadence_replay", "replay_tasks": "cadence_replay_tasks",
          "replay_wirec": "cadence_replay_wirec", "payload": "cadence_payload",
          "rehome": "cadence_rehome", "gen_lanes": "cadence_gen_lanes",
-         "replay_gen": "cadence_replay_gen"}
+         "replay_gen": "cadence_replay_gen", "vis_mask": "cadence_vis_mask",
+         "vis_mask_table": "cadence_vis_mask_table", "vis_topk": "cadence_vis_topk",
+         "vis_topk_table": "cadence_vis_topk_table", "vis_apply": "cadence_vis_apply"}
 #: the kernels kernel_launch_shapes times, by the source files that build them
 #: (and kernel A's entry points, replay*.cu)
-SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu")
+SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu", "scan.cu")
 
 
 def build_entries(csrc: str, sources, subs=()):
     """Build `sources` (file names in the kernel directory `csrc`) into one
     library with nvcc, side by side, after the text substitutions `subs`
     ((file, old, new) each; `old` must occur); returns (the library, its
-    ptxas log). The entry points' argument types are the port's own. Used
-    to time the parent commit's kernels and variants of this tree's beside
-    the port's, never by the port."""
+    ptxas log). The entry points' argument types are the port's own;
+    `lib.entries` names those whose declarations are the port's (an entry
+    point of another signature is never called). Used to time the parent
+    commit's kernels and variants of this tree's beside the port's, never
+    by the port."""
     import ctypes
     import shutil
     import tempfile
@@ -1983,26 +2142,46 @@ def build_entries(csrc: str, sources, subs=()):
         _build._run([nvcc_path(), _build._ARCH, "-shared", "-o", so] + objs)
         lib = ctypes.CDLL(so)
         port = _build.load()
-        for entry in ENTRY.values():
-            if hasattr(lib, entry):
-                getattr(lib, entry).restype = ctypes.c_int
-                getattr(lib, entry).argtypes = getattr(port, entry).argtypes
+        theirs = entry_declarations(src, sources)
+        mine = entry_declarations(_build._CSRC, sorted(os.listdir(_build._CSRC)))
+        lib.entries = {e for e in ENTRY.values() if e in theirs and theirs[e] == mine.get(e)}
+        for entry in lib.entries:
+            getattr(lib, entry).restype = ctypes.c_int
+            getattr(lib, entry).argtypes = getattr(port, entry).argtypes
         return lib, "\n".join(logs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)  # the loaded library stays mapped
 
 
+def entry_declarations(csrc: str, sources) -> dict:
+    """{entry point: its parameter list, whitespace collapsed} of the
+    `extern "C"` functions in `sources` (file names in `csrc`)."""
+    import re
+
+    out = {}
+    for name in sources:
+        path = os.path.join(csrc, name)
+        if name.endswith(".cu") and os.path.isfile(path):
+            for entry, params in re.findall(r'extern "C" \w+ (\w+)\(([^)]*)\)', open(path).read()):
+                out[entry] = " ".join(params.split())
+    return out
+
+
 def rebind(launch, lib, name: str):
     """The launch `launch` (a port wrapper's, kernel `name`) as a call of
-    `lib`'s entry point with the same arguments. It counts no launch."""
+    `lib`'s entry point with the same arguments, after the launch's `copy`
+    step where it has one (kernel L's packed block). It counts no launch."""
     import torch
 
     from cadence_tpu_torch.ops import _build
 
     fn = getattr(lib, ENTRY[name])
     c_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in launch.args)
+    copy = getattr(launch, "copy", None)
 
     def go():
+        if copy is not None:
+            copy()
         _build.check(fn(*c_args), f"{name} ({lib._name})")
 
     go.launch = launch  # the tensors its pointers point into
@@ -2091,12 +2270,17 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
         want()
         if check is not None:
             outputs_equal(want_out, check, f"{key}: kernel against its plain version")
-        mine = [(who, lib) for who, lib in variants if hasattr(lib, ENTRY[name])]
-        for who, lib in mine:
+        mine = [(who, lib) for who, lib in variants if ENTRY[name] in lib.entries]
+
+        def made(lib):
             got, got_out = make()
-            rebind(got, lib, name)()
+            return rebind(got, lib, name), got_out
+
+        for who, lib in mine:
+            got, got_out = made(lib)
+            got()
             outputs_equal(got_out, want_out, f"{key}: {who} against the port")
-        other = lambda lib: lambda: rebind(make()[0], lib, name)  # noqa: E731
+        other = lambda lib: lambda: made(lib)[0]  # noqa: E731
         runs = {}
         if parent is not None:
             runs["parent"] = [cuda_ms(launch, setup=other(parent))]
@@ -2226,8 +2410,338 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
                                  s),
               Wg * row_bytes, ops_check * Wg // GEN_CHECK_W)
         torch.cuda.empty_cache()
+    vis_shapes(dev, timed)
+    vis_feeds = vis_staging(dev)
     return {"floor_ms": floor, "floor_device_ms": floor_device, "shapes": shapes,
-            "rehome_staging": staging, "gen_lanes_max_abs_err": gen_err}
+            "rehome_staging": staging, "gen_lanes_max_abs_err": gen_err, "vis_staging": vis_feeds}
+
+
+def burst_table(records: int, ties: int, capacity: int, seed: int):
+    """({column: numpy array}, {column: kind}, intern table, valid): the
+    device view's columns in visibility_path's write burst, as the view
+    holds them (engine/visibility_device.py _col_order): `records` rows of
+    bench.py's population in domain "bench", then `ties` rows of the ties
+    domain on 16 start times, half of them closed, the first eighth with
+    the Burst attribute, and the rest of the capacity invalid."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, cap = records, capacity
+    i = np.arange(n, dtype=np.int64)
+    t = np.arange(ties, dtype=np.int64)
+    base = 1_700_000_000_000_000_000
+    intern = {"bench": 0, "ties": 500, "tie": 501}
+    intern.update({f"wt-{k}": 1 + k for k in range(8)})
+    intern.update({f"tag-{k}": 9 + k for k in range(4)})
+
+    def col(fill, bench, tie, dtype=np.int64):
+        out = np.full(cap, fill, dtype=dtype)
+        out[:n], out[n:n + ties] = bench, tie
+        return out
+
+    closed = rng.random(n) < 0.5
+    r = rng.random(n)
+    cols = {"domain": col(-1, 0, 500), "workflow_id": col(-1, 1000 + 2 * i, 1000 + 2 * (n + t)),
+            "run_id": col(-1, 1001 + 2 * i, 1001 + 2 * (n + t)),
+            "workflow_type": col(-1, 1 + i % 8, 501),
+            "close_status": col(0, np.where(closed, rng.integers(0, 3, n), -1),
+                                np.where(t < ties // 2, t % 3, -1)),
+            "start_time": col(0, base + i * 1000, base + (t % 16) * 1000),
+            "close_time": col(0, np.where(closed, base + i * 1000 + 7, 0),
+                              np.where(t < ties // 2, base + 10 ** 9, 0)),
+            "Burst": col(np.nan, np.nan, np.where(t < ties // 8, t, np.nan), np.float64),
+            "Priority": col(np.nan, np.where(r < 0.5, rng.integers(0, 10, n), np.nan), np.nan,
+                            np.float64),
+            "Tag": col(-1, np.where((r >= 0.5) & (r < 0.8), 9 + rng.integers(0, 4, n), -1), -1)}
+    kinds = {name: ("f64" if a.dtype == np.float64 else "id") for name, a in cols.items()}
+    kinds.update(close_status="i64", start_time="i64", close_time="i64")
+    valid = np.zeros(cap, dtype=bool)
+    valid[:n + ties] = True
+    return cols, kinds, intern, valid
+
+
+#: kernel J's plans in visibility_path's write burst: the Count after each
+#: delete, after each close, after each upsert of the new attribute
+BURST_PLANS = (("ties_domain", None), ("ties_open", "CloseStatus = -1"),
+               ("ties_burst", "Burst >= 0"))
+#: the view's columns before the burst's new attribute: 7 builtins,
+#: Priority and Tag, and valid; after it, Burst before Priority (the view's
+#: _col_order: builtins, then attributes by name)
+BURST_COLUMNS = ("domain", "workflow_id", "run_id", "workflow_type", "close_status",
+                 "start_time", "close_time", "Priority", "Tag")
+BURST_COLUMNS_NEW = BURST_COLUMNS[:7] + ("Burst",) + BURST_COLUMNS[7:]
+#: kernel L's drains through the view's feed: (B, real rows, columns); the
+#: burst's one-row buckets before and after its new attribute, and a
+#: backlog bucket (visibility_path's shape log: 4,096 of 64 x 10, 1,535 of
+#: 64 x 11, 462 of 1,024-4,096 x 10)
+FEED_SHAPES = ((64, 1, BURST_COLUMNS), (64, 1, BURST_COLUMNS_NEW), (4096, 3000, BURST_COLUMNS))
+
+
+def vis_delta(g, n: int, b: int, real: int, targets, dev):
+    """(idx, vals) of one delta batch of b rows into the [n] columns
+    `targets`: `real` distinct rows (the first written as a negative
+    index), the rest pads (index n), as the view pads a bucket."""
+    import numpy as np
+    import torch
+
+    rows = g.choice(n, real, replace=False).astype(np.int64)
+    rows[0] -= n
+    idx_np = np.full(b, n, np.int64)
+    idx_np[:real] = rows
+    vals = [torch.from_numpy(g.random(b) if t.dtype == torch.float64
+                             else g.random(b) < 0.5 if t.dtype == torch.bool
+                             else g.integers(-5, 100, b)).to(dev, t.dtype)
+            for t in targets]
+    return torch.from_numpy(idx_np).to(dev), vals
+
+
+def vis_shapes(dev, timed) -> None:
+    """Kernels J and L at the shapes visibility_path launches them with,
+    through `timed` (launch_shapes'): J over the view's 2^21-row capacity
+    (1,048,576 records and the ties domain of 4,096) for the burst's three
+    plans (count) and bench.py's six queries (bitmap); L at the burst's
+    delta (a 64-row bucket holding one changed row, the view's 10 columns),
+    and at 512 and 65,536 rows into 24 columns of 2^21 rows (scan_apply:
+    the kernel alone); and L through the view's own feed at FEED_SHAPES
+    (feed_shape: the packed block's copy and the launch)."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.engine.visibility_query import And, Cmp, parse_query
+    from cadence_tpu_torch.ops import scan as S
+
+    n = 2 * VIS_RECORDS
+    host, kinds, intern, valid_np = burst_table(VIS_RECORDS, 4096, n, VIS_SEED)
+    cols = {name: torch.from_numpy(a).to(dev) for name, a in host.items()}
+    valid = torch.from_numpy(valid_np).to(dev)
+    del host
+    binder = VisBinder(kinds, intern)
+
+    def plan_of(domain, q):
+        scoped = Cmp("__domain__", "=", domain)
+        node = parse_query(q)[0] if q else None
+        return S.compile_plan(And(scoped, node) if node is not None else scoped, binder)
+
+    def mask_shape(key, plan, bitmap: bool):
+        pc = [cols[s] for s in plan.slots]
+        if bitmap:
+            want = S.scan_bitmap_plain(plan, pc, valid)
+            make = lambda: S.scan_bitmap_launch(plan, pc, valid)  # noqa: E731
+        else:
+            want = (S.scan_count_plain(plan, pc, valid),)
+
+            def make():
+                run, count = S.scan_count_launch(plan, pc, valid)
+                return run, (count,)
+        nbytes = mask_bytes(plan, valid) + (n // 8 if bitmap else 0)
+        timed(key, "vis_mask", make, nbytes, 0, check=want)
+
+    for name, q in BURST_PLANS:
+        mask_shape(f"vis_mask count {name} {n}", plan_of("ties", q), False)
+    for name, q in vis_queries(VIS_RECORDS)[:6]:
+        mask_shape(f"vis_mask bitmap {name} {n}", plan_of("bench", q), True)
+    # L: the burst's delta into the view's columns, then 512 and 65,536 rows
+    # into 24 columns of the same length
+    g = np.random.default_rng(VIS_SEED + 3)
+    burst = [cols[c] for c in BURST_COLUMNS] + [valid]
+    wide = burst + [torch.zeros(n, dtype=torch.float64 if k % 2 else torch.int64, device=dev)
+                    for k in range(24 - len(burst))]
+    for key, targets, b, real in ((f"vis_apply burst 64 (1 row) x {len(burst)}", burst, 64, 1),
+                                  ("vis_apply 512 x 24", wide, 512, 512 - 32),
+                                  ("vis_apply 65536 x 24", wide, 65536, 65536 - 4096)):
+        idx, vals = vis_delta(g, n, b, real, targets, dev)
+        # the columns compared as bytes (a NaN equals itself there)
+        u8 = lambda ts: tuple(t.view(torch.uint8) for t in ts)  # noqa: E731
+        want = u8(S.scan_apply_plain([t.clone() for t in targets], idx, vals))
+
+        def make(targets=targets, idx=idx, vals=vals):
+            fresh = [t.clone() for t in targets]
+            return kept(S.scan_apply_launch(fresh, idx, vals)[0], *u8(fresh))
+
+        elem = sum(t.element_size() for t in targets)
+        timed(key, "vis_apply", make, b * 8 + 2 * real * elem, 0, check=want)
+        del want
+    for b, real, names in FEED_SHAPES:
+        feed_shape(g, [cols[c] for c in names] + [valid], b, real, timed)
+    del cols, valid, burst, wide
+    torch.cuda.empty_cache()
+
+
+def feed_shape(g, targets, b: int, real: int, timed) -> None:
+    """Kernel L through the view's feed, as a drain makes it: `real` changed
+    rows of a host mirror of `targets` packed by pack_delta into a DeltaFeed's
+    page-locked block (a b-row bucket, pads past the columns), applied by
+    DeltaFeed.send to copies of the columns, and every column held byte for
+    byte to scan_apply_packed_plain on the same block; then the wrapper's
+    launch (the block's copy and kernel L, apply_packed_launch) timed through
+    `timed`."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.ops import scan as S
+
+    n, dev = targets[0].shape[0], targets[0].device
+    u8 = lambda ts: tuple(t.view(torch.uint8) for t in ts)  # noqa: E731
+    mirror = [t.cpu().numpy() for t in targets]
+    rows = g.choice(n, real, replace=False).astype(np.int64)
+    for col in mirror:  # the changed rows' new values
+        col[rows] = (g.random(real) if col.dtype == np.float64 else g.random(real) < 0.5
+                     if col.dtype == bool else g.integers(-5, 100, real))
+    feed = S.DeltaFeed(dev)
+    _, nbytes = S.apply_layout([c.itemsize for c in mirror], b)
+    S.pack_delta(feed.block(nbytes), rows, mirror, b, pad=n)
+    block = torch.from_numpy(feed.block(nbytes).copy())
+    want = u8(S.scan_apply_packed_plain([t.clone() for t in targets], block.to(dev), b))
+    sent = [t.clone() for t in targets]
+    feed.send(sent, b)
+    bad = sum(int((x != y).sum()) for x, y in zip(u8(sent), want))
+    if bad or any(not np.array_equal(x.cpu().numpy(), m.view(np.uint8))
+                  for x, m in zip(u8(sent), mirror)):
+        fail(f"feed_shape {b} x {len(targets)}: DeltaFeed.send differs from "
+             f"scan_apply_packed_plain ({bad} bytes) or from the host mirror")
+    del sent
+
+    def make():
+        fresh = [t.clone() for t in targets]
+        dev_block = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        run, _ = S.apply_packed_launch(fresh, S.apply_table(fresh), feed._host, dev_block, b)
+        return kept(run, *u8(fresh))
+
+    elem = sum(t.element_size() for t in targets)
+    timed(f"vis_apply feed {b} x {len(targets)} ({real} changed)", "vis_apply", make,
+          b * 8 + 2 * real * elem, 0, check=want)
+
+
+#: cycles of the spin kernel vis_staging queues (about 2 ms), longer than a
+#: drain's or a query's host work, so the card is busy through the call
+STAGING_SPIN_CYCLES = 4_000_000
+
+
+def vis_staging(dev, reps: int = REPS) -> dict:
+    """The host cost of kernel J's and kernel L's feeds in the device view
+    at visibility_path's capacity (2^21 rows, the view's 10 columns, 4,096
+    records): one drain's _sync_device_locked after a one-row change (the
+    delta staged and kernel L launched), and one scan_count of the ties
+    domain read back with int(). Each is timed behind a queued spin kernel
+    (`host_ms`: the host's time in the call while the card is busy, the
+    count's int() after it; `device_ms`: CUDA events from before the spin
+    kernel to after the call, less the spin kernel's own time) and with
+    nothing queued (`alone_ms`: host clock through int() and a
+    synchronise). Median of `reps` after a warm-up. Then the view's device
+    columns are held to its host mirror (view_columns_equal) after those
+    one-row drains (64 x 10), after a backlog drain (3,000 rows, a 4,096-row
+    bucket x 10), and after a new attribute column's restage and a one-row
+    drain at 64 x 11."""
+    import torch
+
+    from cadence_tpu_torch.engine.visibility_device import DeviceVisibilityView
+    from cadence_tpu_torch.engine.visibility_query import And, Cmp
+    from cadence_tpu_torch.ops import scan as S
+    from cadence_tpu_torch.utils.metrics import MetricsRegistry
+
+    saved = os.environ.get("CADENCE_TPU_VISIBILITY_CAPACITY")
+    os.environ["CADENCE_TPU_VISIBILITY_CAPACITY"] = str(2 * VIS_RECORDS)
+    try:
+        view = DeviceVisibilityView(registry=MetricsRegistry(), device=dev)
+    finally:
+        if saved is None:
+            os.environ.pop("CADENCE_TPU_VISIBILITY_CAPACITY")
+        else:
+            os.environ["CADENCE_TPU_VISIBILITY_CAPACITY"] = saved
+    base = 1_700_000_000_000_000_000
+    seq = 0
+
+    def upsert(i, status=-1, attrs=None):
+        nonlocal seq
+        seq += 1
+        view._apply_upsert((seq, "up", ("ties", f"tie-{i:04d}", f"tr-{i:04d}"), "tie", status,
+                            base + (i % 16) * 1000, 0 if status < 0 else base + 10 ** 9,
+                            attrs if attrs is not None else
+                            ({"Priority": i % 10} if i % 2 else {"Tag": f"tag-{i % 4}"})))
+
+    for i in range(4096):
+        upsert(i)
+    with view._lock:
+        view._sync_device_locked()  # the bootstrap restage
+    plan = S.compile_plan(And(Cmp("__domain__", "=", "ties"), Cmp("CloseStatus", "=", -1)),
+                          view._binder())
+    spin_ms = cuda_ms(lambda _: torch.cuda._sleep(STAGING_SPIN_CYCLES))
+    step = iter(range(1, 10 ** 6))
+
+    def drain():
+        upsert(next(step) % 4096, status=1)  # one changed row
+        with view._lock:
+            view._sync_device_locked()
+
+    def count():  # the count as a tensor; int() is taken after the host's clock
+        with view._lock:
+            cols, valid = view._args_locked(plan)
+            return S.scan_count(plan, cols, valid)
+
+    out = {"rows": view.capacity, "columns": len(view._col_order()) + 1, "spin_ms": spin_ms}
+    for name, call in (("drain_one_row", drain), ("count_ties_open", count)):
+        behind, alone = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.cuda._sleep(STAGING_SPIN_CYCLES)
+            t0 = time.perf_counter()
+            got = call()
+            host = (time.perf_counter() - t0) * 1e3
+            b.record()
+            b.synchronize()
+            if got is not None:
+                int(got)
+            behind.append((host, a.elapsed_time(b) - spin_ms))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call()
+            if got is not None:
+                int(got)
+            torch.cuda.synchronize()
+            alone.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"host_ms": statistics.median(h for h, _ in behind[1:]),
+                     "device_ms": statistics.median(d for _, d in behind[1:]),
+                     "alone_ms": statistics.median(alone[1:])}
+    checked = {"one_row": view_columns_equal(view, "vis_staging after one-row drains")}
+    for i in range(3000):  # a backlog: one drain of 3,000 changed rows
+        upsert(i, status=2)
+    with view._lock:
+        view._sync_device_locked()
+    checked["backlog_3000"] = view_columns_equal(view, "vis_staging after a backlog drain")
+    upsert(0, attrs={"Burst": 0})  # a new attribute column: the restage
+    with view._lock:
+        view._sync_device_locked()
+    upsert(1, attrs={"Burst": 1})  # one row into the 11 columns
+    builds = view._feed.table_builds
+    with view._lock:
+        view._sync_device_locked()
+    if view._feed.table_builds != builds + 1:
+        fail("vis_staging: the drain after the new column did not rebuild the feed's table")
+    checked["new_column"] = view_columns_equal(view, "vis_staging after a new column")
+    out["columns_checked"] = checked
+    view.stop()
+    emit("vis_staging", **out)
+    return out
+
+
+def view_columns_equal(view, what: str) -> int:
+    """Hold a device visibility view's columns and valid on the card to its
+    host mirror, byte for byte, after draining what is pending; returns the
+    columns compared."""
+    import numpy as np
+
+    with view._lock:
+        view._drain_locked()
+        pairs = [(name, view._dev_cols[name], view._host_col(name))
+                 for name in view._col_order()] + [("valid", view._dev_valid, view._valid)]
+        for name, dev_col, host in pairs:
+            got = dev_col.cpu().numpy()
+            if got.shape != host.shape or not np.array_equal(got.view(np.uint8),
+                                                             host.view(np.uint8)):
+                fail(f"{what}: the view's device column {name!r} differs from its host mirror")
+    return len(pairs)
 
 
 def rehome_shapes(chunk, bulk, batch, dev):
@@ -2361,8 +2875,10 @@ def rehome_staging(events_np, slab_src, dev, reps: int = REPS) -> dict:
 #: that draw and store), and with its step's update in a switch on the
 #: action (each case act_all at a constant action, the branches the
 #: generator reader takes); kernel A's generator reader with act_all run
-#: once at the step's action before its switch on the replay's effects.
-#: Built and timed with --variants
+#: once at the step's action before its switch on the replay's effects;
+#: kernel J with 2 and 8 rows a lane in a tile (J_ROWS; the port's is 4),
+#: and with 2 and 4 leaves' loads issued ahead (J_AHEAD; the port's is 1).
+#: Built and timed with --variants (all, or the names given)
 A_SOURCES = ("replay.cu", "replay_tasks.cu", "replay_global.cu")
 #: the actions whose update act_all makes (csrc/genkernel.cuh; A_SIGNAL and
 #: A_WFCLOSE change nothing)
@@ -2398,6 +2914,14 @@ VARIANTS = {
                                              f"    case {c}: act_all(g, d, eid, {c}, a); break;\n"
                                              for c in GEN_ACTIONS)
                                          + "    default: break;\n  }\n"),)),
+    "j_rows2": (("scan.cu",), (("scan.cu", "constexpr int J_ROWS = 4;",
+                                "constexpr int J_ROWS = 2;"),)),
+    "j_rows8": (("scan.cu",), (("scan.cu", "constexpr int J_ROWS = 4;",
+                                "constexpr int J_ROWS = 8;"),)),
+    "j_ahead2": (("scan.cu",), (("scan.cu", "constexpr int J_AHEAD = 1;",
+                                 "constexpr int J_AHEAD = 2;"),)),
+    "j_ahead4": (("scan.cu",), (("scan.cu", "constexpr int J_AHEAD = 1;",
+                                 "constexpr int J_AHEAD = 4;"),)),
     "gen_act_all_once": (("replay_gen.cu",), (
         ("replay_gen.cuh", "    switch (code) {\n",
          "    gen::act_all(g, d, ev_id, code, a);\n    switch (code) {\n"),
@@ -2418,6 +2942,14 @@ A_INSTANCES = {f"{reader}{'_tasks' if t else ''} {route}": (
 def a_ptxas(build_log: str) -> dict:
     """Registers and spills of every instance of kernel A in a build log."""
     return {name: ptxas_usage(build_log, *parts) for name, parts in A_INSTANCES.items()}
+
+
+def jl_ptxas(build_log: str) -> dict:
+    """Registers and spills of kernels J (its by-value and table instances)
+    and L in a build log."""
+    return {"vis_mask": ptxas_usage(build_log, "vis_mask_kernel", "ValuePlan"),
+            "vis_mask_table": ptxas_usage(build_log, "vis_mask_kernel", "TablePlan"),
+            "vis_apply": ptxas_usage(build_log, "vis_apply_kernel")}
 
 
 def gen_ptxas(build_log: str) -> dict:
@@ -2441,12 +2973,15 @@ def launch_shapes_phase(args, events_np, dev) -> dict:
         builds.append(("parent", csrc, [f for f in sorted(os.listdir(csrc)) if f in SHAPE_SOURCES
                                         or (f.startswith("replay") and f.endswith(".cu"))], ()))
     if args.variants:
-        builds += [(name, _build._CSRC, list(srcs), subs)
-                   for name, (srcs, subs) in VARIANTS.items()]
+        names = list(VARIANTS) if args.variants == "all" else args.variants.split(",")
+        builds += [(name, _build._CSRC, list(VARIANTS[name][0]), VARIANTS[name][1])
+                   for name in names]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max(1, len(builds))) as pool:
         built = list(pool.map(lambda b: build_entries(b[1], b[2], b[3]), builds))
     libs = [(b[0], lib) for b, (lib, _) in zip(builds, built)]
+    if args.parent:
+        _PARENT_LIBS["scan"] = libs[0][1]  # kernel_vis times the parent's J, K and L with it
     ptxas = {b[0]: {line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line}
              for b, (_, log) in zip(builds, built)}
@@ -2460,9 +2995,12 @@ def launch_shapes_phase(args, events_np, dev) -> dict:
          ptxas_kernel_g=ptxas_usage(_build.build_log, "rehome_kernel"),
          ptxas_kernel_i=ptxas_usage(_build.build_log, "gen_lanes_kernel"),
          ptxas_replay_gen=gen_ptxas(_build.build_log),
+         ptxas_kernels_j_l=jl_ptxas(_build.build_log),
+         ptxas_parent_j_l={b[0]: jl_ptxas(log) for b, (_, log) in zip(builds, built)
+                           if b[0] == "parent"},
          ptxas_variants={b[0]: {**a_ptxas(log), "rehome": ptxas_usage(log, "rehome_kernel"),
                                 "gen_lanes": ptxas_usage(log, "gen_lanes_kernel"),
-                                "replay_gen": gen_ptxas(log)}
+                                "replay_gen": gen_ptxas(log), **jl_ptxas(log)}
                          for b, (_, log) in zip(builds, built) if b[0] != "parent"})
     return out
 
@@ -2480,6 +3018,8 @@ def attach_launch_shapes(records, out) -> None:
             rec["launch_floor_device_ms"] = out["floor_device_ms"]
         if rec["name"] == "rehome":
             rec["staging_behind_kernel_a"] = out["rehome_staging"]
+        if rec["name"] in ("vis_mask", "vis_apply"):
+            rec["feeds_behind_a_spin_kernel"] = out["vis_staging"]
 
 
 #: trap_corpus's rows (a multiple of its six kinds) and events, and the
@@ -2782,14 +3322,17 @@ def main() -> int:
     p.add_argument("--small", action="store_true",
                    help="run every phase at a few thousand workflows")
     p.add_argument("--parent", metavar="DIR",
-                   help="the root of a checkout of another commit: its kernels A, B, G, I and "
-                        "A's generator reader are built and timed beside this tree's in "
-                        "kernel_launch_shapes")
-    p.add_argument("--variants", action="store_true",
-                   help="build VARIANTS of this tree's kernels and time them beside the port's "
-                        "in kernel_launch_shapes")
+                   help="the root of a checkout of another commit whose entry points have this "
+                        "tree's signatures: its kernels A, B, G, I, A's generator reader, J and "
+                        "L are built and timed beside this tree's in kernel_launch_shapes, and "
+                        "J, K and L in kernel_vis")
+    p.add_argument("--variants", nargs="?", const="all", metavar="NAME,...",
+                   help="build VARIANTS of this tree's kernels (all, or the names given) and "
+                        "time them beside the port's in kernel_launch_shapes")
     p.add_argument("--shapes-only", action="store_true",
                    help="run the suites corpus, the build and kernel_launch_shapes, and stop")
+    p.add_argument("--visibility-only", action="store_true",
+                   help="run the build, kernel_vis, vis_staging and visibility_path, and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
@@ -2838,12 +3381,12 @@ def main() -> int:
     from cadence_tpu_torch.utils.metrics import M_NATIVE_PACKS, SCOPE_TPU_NATIVE, MetricsRegistry
 
     t_start = time.perf_counter()
-    # --- host corpora first, in a pool of spawned workers
-    corp = generate(args)
-    histories, oracle = corp["histories"], corp["oracle"]
-    emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
-         chains=int(corp["chains"].shape[0]), trees=int(corp["trees"].shape[0]),
-         workers=os.cpu_count(), seconds=corp["seconds"])
+    if not args.visibility_only:  # host corpora first, in a pool of spawned workers
+        corp = generate(args)
+        histories, oracle = corp["histories"], corp["oracle"]
+        emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
+             chains=int(corp["chains"].shape[0]), trees=int(corp["trees"].shape[0]),
+             workers=os.cpu_count(), seconds=corp["seconds"])
 
     # --- 1. probe and build
     smi = smi_line()
@@ -2859,6 +3402,12 @@ def main() -> int:
     if args.shapes_only:
         launch_shapes_phase(args, encode_corpus(histories), dev)
         replay_traps(dev)
+        print(smi)
+        return 0
+    if args.visibility_only:
+        kernel_vis(args, dev, [])
+        vis_staging(dev)
+        visibility_path(args)
         print(smi)
         return 0
 
@@ -3255,7 +3804,6 @@ def main() -> int:
     # kernel I and kernel A's generator reader
     gen_kernels(args, corp, dev, records,
                 shapes_out["gen_lanes_max_abs_err"][f"gen_lanes {GEN_CHECK_W}x{args.ns_events}"])
-    attach_launch_shapes(records, shapes_out)
 
     # --- north_star (ns-1m): the device generator fused into kernel A
     ns_launches, parity_launches, host_gen_launches = north_star(args, corp, dev)
@@ -3503,6 +4051,7 @@ def main() -> int:
     visibility_launches = visibility_path(args)
 
     # --- the summary lines
+    attach_launch_shapes(records, shapes_out)
     paths = {"main_path": main_launches, "wirec_path": wirec_launches,
              "feeder_path": feeder_launches, "north_star": ns_launches,
              "north_star_parity": parity_launches, "host_generator": host_gen_launches,

@@ -387,3 +387,348 @@ def test_topk_constants_are_the_kernels():
     assert int(consts["K_DIGIT"]) == ts.TOPK_DIGIT
     assert int(consts["K_CAP"]) == ts.TOPK_CAP
     assert int(consts["K_SORT_MAX"]) == ts.TOPK_SORT_MAX
+
+
+# --- kernels J and L compiled for the host: csrc/scan.cu's phases (a lane's
+# rows, a warp's words and count, a block's partial, the last block's sum;
+# L's (column, row) unit) run lane by lane, the warp's ballot made here, on
+# CPU tensors. The card's compile and launch are held by chip_smoke.py alone.
+
+JL_HARNESS = r"""
+template <class Plan>
+long long run_mask(const Plan& P, const uint8_t* valid, int64_t N, int max_blocks,
+                   uint32_t* bitmap, MaskScratch* s, unsigned long long* count, int reverse) {
+  const int g = j_grid(N, max_blocks);
+  int last = -1;
+  for (int k = 0; k < g; ++k) {
+    const int b = reverse ? g - 1 - k : k;
+    unsigned long long block = 0;
+    for (int w = 0; w < J_WARPS; ++w)
+      for (int64_t tile = first_tile(b, w); tile * J_TILE < N; tile += tile_step(g)) {
+        const int64_t t0 = tile * J_TILE;
+        bool m[32][J_ROWS];
+        for (int lane = 0; lane < 32; ++lane) lane_rows(P, valid, N, t0 + lane, m[lane]);
+        unsigned bits[J_ROWS] = {};
+        for (int j = 0; j < J_ROWS; ++j)
+          for (int lane = 0; lane < 32; ++lane) bits[j] |= unsigned(m[lane][j]) << lane;
+        unsigned c = 0;
+        for (int lane = 0; lane < 32; ++lane) c = tile_out(bits, bitmap, t0, N, lane);
+        block += c;
+      }
+    unsigned long long total = 0;
+    if (block_partial(s, g, block, &total)) {
+      if (last >= 0) return -2;  // two blocks took the last ticket
+      last_block_out(s, total, count);
+      last = b;
+    }
+  }
+  return last < 0 ? -1 : g;
+}
+
+extern "C" long long host_mask(const void* plan, const int64_t* table, int entries, int n_ins,
+                               const uint8_t* valid, int64_t N, int max_blocks, uint32_t* bitmap,
+                               void* scratch, unsigned long long* count, int reverse) {
+  MaskScratch* s = static_cast<MaskScratch*>(scratch);
+  if (plan != nullptr)
+    return run_mask(*static_cast<const ValuePlan*>(plan), valid, N, max_blocks, bitmap, s, count,
+                    reverse);
+  return run_mask(TablePlan{table, entries, n_ins}, valid, N, max_blocks, bitmap, s, count,
+                  reverse);
+}
+
+extern "C" void host_rows(const void* plan, const int64_t* table, int entries, int n_ins,
+                          const uint8_t* valid, int64_t N, uint8_t* mask) {
+  for (int64_t row = 0; row < N; ++row)
+    mask[row] = valid[row] && (plan != nullptr
+                                   ? eval_row(*static_cast<const ValuePlan*>(plan), row)
+                                   : eval_row(TablePlan{table, entries, n_ins}, row));
+}
+
+extern "C" void host_apply(const int64_t* table, int C, const uint8_t* packed, int64_t B,
+                           int64_t N) {
+  const int64_t bx = (B + L_THREADS - 1) / L_THREADS;
+  for (int c = 0; c < C; ++c)
+    for (int64_t x = 0; x < bx; ++x)
+      for (int t = 0; t < L_THREADS; ++t) apply_unit(table, C, packed, B, N, c, x * L_THREADS + t);
+}
+
+extern "C" void host_sizes(long long* out) {
+  out[0] = sizeof(ValuePlan);
+  out[1] = sizeof(MaskScratch);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_jl(tmp_path_factory):
+    import ctypes
+
+    from tests.torch_parity import host_kernel
+
+    lib = host_kernel(tmp_path_factory.mktemp("scan"), "scan.cu",
+                      "// The kernels and their launchers", JL_HARNESS, close="}  // namespace\n")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.host_mask.restype = ctypes.c_longlong
+    lib.host_mask.argtypes = [P, P, I, I, P, L, I, P, P, P, I]
+    lib.host_rows.restype = None
+    lib.host_rows.argtypes = [P, P, I, I, P, L, P]
+    lib.host_apply.restype = None
+    lib.host_apply.argtypes = [P, I, P, L, L]
+    lib.host_sizes.argtypes = [P]
+    sizes = (ctypes.c_longlong * 2)()
+    lib.host_sizes(sizes)
+    # a ValuePlan of another layout would hand the kernel wild pointers
+    assert sizes[0] == ctypes.sizeof(ts.ValuePlan), "ops/scan.py ValuePlan is not scan.cu's"
+    return lib
+
+
+def _host_plan(plan, cols, route):
+    """(the plan arguments of host_mask and host_rows by `route`, what they
+    point into)."""
+    import ctypes
+
+    entries, ins = ts.decode_plan(plan, cols)
+    if route == "value":
+        vp = ts.value_plan(entries, ins)
+        return (ctypes.addressof(vp), None, 0, 0), vp
+    table = torch.tensor(ts.table_plan(entries, ins), dtype=torch.int64)
+    return (None, table.data_ptr(), len(entries), len(ins)), table
+
+
+def _host_mask(lib, plan, cols, valid, route, max_blocks, scratch=None, reverse=False):
+    """Kernel J compiled for the host on CPU tensors, by `route`: (bitmap,
+    count, grid, the scratch word after the launch)."""
+    n = valid.shape[0]
+    bits = torch.full((n // 8,), 0xA5, dtype=torch.uint8)  # every byte must be written
+    count = torch.full((), -7, dtype=torch.int64)
+    if scratch is None:
+        scratch = torch.zeros(ts.MASK_SCRATCH_BYTES, dtype=torch.uint8)
+    args, _kept = _host_plan(plan, cols, route)
+    grid = lib.host_mask(*args, valid.data_ptr(), n, max_blocks, bits.data_ptr(),
+                         scratch.data_ptr(), count.data_ptr(), int(reverse))
+    assert grid > 0, grid
+    return bits, int(count), grid, int(scratch.view(torch.int64)[0])
+
+
+def _leaf(kind, op, slot, param=0):
+    ip = int(param) if kind != "f64" else 0
+    fp = float(param) if kind == "f64" else 0.0
+    return (kind, op, slot), ip, fp
+
+
+def _chain(n, ops):
+    """An and/or tree over leaves 0..n-1, nested n - 1 deep (each node's
+    right child the next leaf), its ops cycling through `ops`."""
+    tree = 0
+    for i in range(1, n):
+        tree = (ops[i % len(ops)], tree, i)
+    return tree
+
+
+def _named_plan(name):
+    """(ScanPlan, JAX ScanPlan, column kinds) of one of the plans kernel J
+    must meet: id EQ/NE/PRESENT against NULL_ID, every i64 op at INT64_MIN
+    and INT64_MAX, f64 ops against NaN, +-inf and -0.0, the constants, a
+    chain nested 10 deep, and 13 random leaves."""
+    if name == "leaves_13":
+        plan, jplan, kinds = _rand_plan(np.random.default_rng(13), n_cols=5, n_leaves=13)
+        return plan, jplan, kinds
+    if name == "id_null":
+        kinds = {"a": "id", "b": "id"}
+        leaves = [_leaf("id", js.OP_EQ, 0, -1), _leaf("id", js.OP_NE, 1, -1),
+                  _leaf("id", js.OP_PRESENT, 0), _leaf("id", js.OP_NE, 0, 2),
+                  _leaf("id", js.OP_EQ, 1, 3)]
+        tree = ("or", ("and", 1, 2), ("or", 0, ("and", 3, 4)))
+    elif name == "i64_edges":
+        kinds = {"t": "i64"}
+        ops = (js.OP_EQ, js.OP_NE, js.OP_LT, js.OP_LE, js.OP_GT, js.OP_GE)
+        leaves = [_leaf("i64", op, 0, p) for op in ops for p in (I64_MIN, I64_MAX)]
+        tree = _chain(len(leaves), ("or", "and"))
+    elif name == "f64_specials":
+        kinds = {"f": "f64", "g": "f64"}
+        ops = (js.OP_EQ, js.OP_NE, js.OP_LT, js.OP_LE, js.OP_GT, js.OP_GE, js.OP_PRESENT)
+        leaves = [_leaf("f64", op, i % 2, p) for i, (op, p) in enumerate(
+            (op, p) for op in ops for p in (np.nan, np.inf, -np.inf, -0.0))]
+        tree = _chain(len(leaves), ("or", "or", "and"))
+    elif name == "constants":
+        kinds = {"t": "i64", "a": "id"}
+        leaves = [_leaf("i64", js.OP_TRUE, 0), _leaf("i64", js.OP_GT, 0, 0),
+                  _leaf("id", js.OP_FALSE, 1), _leaf("id", js.OP_PRESENT, 1),
+                  _leaf("i64", js.OP_FALSE, 0)]
+        tree = ("or", ("and", 0, 1), ("and", ("or", 2, 3), ("or", 4, 0)))
+    else:  # "nested_10"
+        kinds = {"t": "i64", "f": "f64", "a": "id"}
+        leaves = [_leaf("i64", js.OP_GE, 0, 5), _leaf("f64", js.OP_LT, 1, 1.5),
+                  _leaf("id", js.OP_NE, 2, 1), _leaf("i64", js.OP_LT, 0, 1000),
+                  _leaf("f64", js.OP_PRESENT, 1), _leaf("id", js.OP_EQ, 2, 4),
+                  _leaf("i64", js.OP_NE, 0, -1), _leaf("f64", js.OP_GE, 1, -0.0),
+                  _leaf("id", js.OP_PRESENT, 2), _leaf("i64", js.OP_LE, 0, 7),
+                  _leaf("f64", js.OP_NE, 1, 3.0)]
+        tree = _chain(len(leaves), ("and", "or", "or"))
+    args = (tree, tuple(lf for lf, _, _ in leaves), tuple(kinds),
+            np.asarray([ip for _, ip, _ in leaves], np.int64),
+            np.asarray([fp for _, _, fp in leaves], np.float64))
+    return ts.ScanPlan(*args), js.ScanPlan(*args), kinds
+
+
+_MASK_PLANS = ("id_null", "i64_edges", "f64_specials", "constants", "nested_10", "leaves_13")
+#: N: one tile's worth, a few blocks, and several blocks whose last tile is
+#: partial (the rows past N masked off)
+_MASK_NS = (64, 4096, (1 << 16) + 64)
+_JAX_MASKS: dict = {}
+
+
+def _mask_case(name, n):
+    """(plan, torch columns, valid, JAX bitmap, JAX count) for one plan at n
+    rows; the JAX side is made once a module."""
+    plan, jplan, kinds = _named_plan(name)
+    cols, valid = _columns(np.random.default_rng(n + _MASK_PLANS.index(name)), plan.slots,
+                           kinds, n)
+    if (name, n) not in _JAX_MASKS:
+        jargs = (tuple(jnp.asarray(c) for c in cols), jnp.asarray(valid),
+                 jnp.asarray(jplan.iparams), jnp.asarray(jplan.fparams))
+        jbits, jc = js.build_bitmap(jplan)(*jargs)
+        _JAX_MASKS[(name, n)] = (np.asarray(jbits), int(jc))
+    return (plan, [torch.from_numpy(c) for c in cols], torch.from_numpy(valid)) \
+        + _JAX_MASKS[(name, n)]
+
+
+@pytest.mark.parametrize("route", ["value", "table"])
+@pytest.mark.parametrize("n", _MASK_NS)
+@pytest.mark.parametrize("name", _MASK_PLANS)
+def test_host_mask_as_jax(host_jl, name, n, route):
+    """Kernel J's phases give JAX build_bitmap's bitmap and build_count's
+    count, by either route, on a full grid and on a grid of 3 blocks (each
+    warp walks several tiles)."""
+    plan, cols, valid, jbits, jcount = _mask_case(name, n)
+    for max_blocks in (1 << 20, 3):
+        bits, count, grid, ticket = _host_mask(host_jl, plan, cols, valid, route, max_blocks)
+        assert np.array_equal(bits.numpy(), jbits), (max_blocks, grid)
+        assert count == jcount and ticket == 0, (max_blocks, grid)
+
+
+@pytest.mark.parametrize("route", ["value", "table"])
+@pytest.mark.parametrize("name", _MASK_PLANS)
+def test_host_topk_rows_as_jax(host_jl, name, route):
+    """Kernel K's row test (eval_row on the plan J takes, valid applied),
+    row by row, packs to JAX build_bitmap's bitmap, by either route."""
+    plan, cols, valid, jbits, jcount = _mask_case(name, _MASK_NS[1])
+    n = valid.shape[0]
+    args, _kept = _host_plan(plan, cols, route)
+    mask = torch.full((n,), 7, dtype=torch.uint8)
+    host_jl.host_rows(*args, valid.data_ptr(), n, mask.data_ptr())
+    assert set(mask.unique().tolist()) <= {0, 1}
+    assert np.array_equal(np.packbits(mask.numpy().astype(bool)), jbits)
+    assert int(mask.sum()) == jcount
+
+
+def test_host_mask_twice_leaves_no_state(host_jl):
+    """Two launches on one scratch with no reset between them, the second
+    with its blocks finishing in the other order and a smaller grid: each
+    count is JAX's and each leaves the scratch word at 0."""
+    plan, cols, valid, jbits, jcount = _mask_case("leaves_13", _MASK_NS[-1])
+    scratch = torch.zeros(ts.MASK_SCRATCH_BYTES, dtype=torch.uint8)
+    grids = []
+    for max_blocks, reverse in ((1 << 20, False), (5, True), (1 << 20, True)):
+        bits, count, grid, ticket = _host_mask(host_jl, plan, cols, valid, "value", max_blocks,
+                                               scratch, reverse)
+        assert count == jcount and ticket == 0 and np.array_equal(bits.numpy(), jbits)
+        grids.append(grid)
+    assert grids[0] > 5 and grids[1] == 5
+
+
+def test_host_value_plan_layout_is_the_kernels(host_jl):
+    """ops/scan.py's ValuePlan and the mask scratch it allocates have
+    csrc/scan.cu's sizes."""
+    import ctypes
+
+    sizes = (ctypes.c_longlong * 2)()
+    host_jl.host_sizes(sizes)
+    assert sizes[0] == ctypes.sizeof(ts.ValuePlan)
+    assert sizes[1] == ts.MASK_SCRATCH_BYTES
+
+
+def test_mask_route_by_plan_size():
+    """Up to PLAN_LEAVES leaves and PLAN_INS instructions the plan goes by
+    value; past either, as a table. Constant leaves take no entry."""
+    col = torch.zeros(64, dtype=torch.int64)
+
+    def route(n_leaves, op=ts.OP_GT):
+        leaves = ((ts.COL_I64, op, 0),) * n_leaves
+        plan = ts.ScanPlan(_chain(n_leaves, ("and", "or")), leaves, ("t",),
+                           np.zeros(n_leaves, np.int64), np.zeros(n_leaves))
+        return ts.plan_route(*ts.decode_plan(plan, [col]))
+
+    assert route(ts.PLAN_LEAVES) == "value"
+    assert route(ts.PLAN_LEAVES + 1) == "table"
+    assert route(ts.PLAN_INS // 2 + 1, ts.OP_TRUE) == "table"
+    mixed = ts.ScanPlan(("and", 0, ("or", 1, 2)), ((ts.COL_I64, ts.OP_TRUE, 0),
+                                                    (ts.COL_I64, ts.OP_GT, 0),
+                                                    (ts.COL_I64, ts.OP_FALSE, 0)),
+                        ("t",), np.asarray([0, 7, 0], np.int64), np.zeros(3))
+    entries, ins = ts.decode_plan(mixed, [col])
+    assert entries == [(col.data_ptr(), 7, ts.KIND_CODE[ts.COL_I64] | ts.OP_GT << 8)]
+    assert sorted(ins) == sorted([ts.T_TRUE, ts.T_LEAF, ts.T_FALSE, ts.T_OR, ts.T_AND])
+    with pytest.raises(ValueError):
+        ts.value_plan([(0, 0, 0)] * (ts.PLAN_LEAVES + 1), [ts.T_LEAF] * 3)
+
+
+@pytest.mark.parametrize("b", [1, 64, 512])
+def test_host_apply_as_jax(host_jl, b):
+    """Kernel L's unit over every (column, row) of its grid and the packed
+    plain version give JAX build_apply's columns: negative and out-of-range
+    indices, pads, int64, float64 and bool columns, the delta packed as the
+    view packs it."""
+    n = 600
+    rng = np.random.default_rng(b)
+    real = max(1, b - b // 8)
+    rows = rng.choice(n - 1, real, replace=False).astype(np.int64)
+    rows[: max(1, real // 8)] -= n  # the same rows, as negative indices
+    rows[0] = -1  # row n - 1
+    if real > 2:
+        rows[-1] = n + 5  # out of range: dropped
+        rows[-2] = -n - 3  # below -N: dropped
+    host_vals = [rng.integers(-5, 5, n).astype(np.int64), rng.random(n), rng.random(n) < 0.5]
+    host_vals[1][:50] = np.nan
+    cols = [rng.integers(-9, 9, n).astype(np.int64), rng.choice([np.nan, -0.0, 1.5], n),
+            rng.random(n) < 0.5]
+    # the delta's values: the host columns at the (wrapped, clipped) rows
+    srcs = [np.concatenate([v, v]) for v in host_vals]
+    at = np.clip(np.where(rows < 0, rows + n, rows), 0, n - 1)
+    block = np.zeros(ts.apply_layout([8, 8, 1], b)[1], np.uint8)
+    ts.pack_delta(block, at, srcs, b, pad=n)
+    block[:8 * real].view(np.int64)[:] = rows  # the indices as given, wrap and drop included
+    idx = block[:8 * b].view(np.int64).copy()
+    vals = [block[off:off + v.itemsize * b].view(v.dtype).copy()
+            for off, v in zip(ts.apply_layout([8, 8, 1], b)[0], host_vals)]
+    want = js.build_apply(tuple(str(c.dtype) for c in cols))(
+        tuple(jnp.asarray(c) for c in cols), jnp.asarray(idx), tuple(jnp.asarray(v) for v in vals))
+    got = [torch.from_numpy(c.copy()) for c in cols]
+    table = ts.apply_table(got)
+    host_jl.host_apply(table.data_ptr(), len(got), block.ctypes.data, b, n)
+    plain = ts.scan_apply_packed_plain([torch.from_numpy(c.copy()) for c in cols],
+                                       torch.from_numpy(block), b)
+    for g, p, w in zip(got, plain, want):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes() == p.numpy().tobytes()
+
+
+def test_apply_layout_takes_8_byte_columns_first():
+    assert ts.apply_layout([8, 8, 1], 64) == ([512, 1024, 1536], 1600)
+    for sizes in ([1, 8], [8, 4], [2]):
+        with pytest.raises(ValueError):
+            ts.apply_layout(sizes, 64)
+
+
+def test_scan_constants_are_the_kernels():
+    """Kernel J's rows a lane, threads and plan capacity, and kernel L's
+    threads, are csrc/scan.cu's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ts.__file__).parents[1] / "csrc" / "scan.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int ([JL]_\w+) = (\d+);", src)}
+    assert consts["J_ROWS"] == ts.MASK_ROWS
+    assert consts["J_THREADS"] == ts.MASK_THREADS
+    assert consts["J_PLAN_LEAVES"] == ts.PLAN_LEAVES
+    assert consts["J_PLAN_INS"] == ts.PLAN_INS
+    assert consts["L_THREADS"] == ts.APPLY_THREADS

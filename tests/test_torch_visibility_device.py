@@ -368,3 +368,51 @@ def test_stats_have_no_compile_cache_keys(vis_env):
     assert not {"compile_cache_hits", "compile_cache_misses"} & set(tv.stats())
     assert isinstance(tv._dev_valid, torch.Tensor) and tv._dev_valid.device.type == "cpu"
     assert np.array_equal(tv._dev_valid.numpy(), tv._valid)
+
+
+def _feed_key(view):
+    """(pointer, element size) of the columns kernel L writes, in order."""
+    cols = [view._dev_cols[name] for name in view._col_order()] + [view._dev_valid]
+    return tuple((c.data_ptr(), c.element_size()) for c in cols)
+
+
+def test_delta_feed_rebuilds_its_table_only_when_the_columns_change(vis_env, monkeypatch):
+    """Kernel L's feed (ops/scan.py DeltaFeed) builds the columns' pointer
+    table at the first delta and keeps it, and its host block, across
+    drains; growth (a restage at twice the capacity) and a new attribute
+    column make the next delta build it again, for the new columns. The
+    answers stay the JAX view's."""
+    monkeypatch.setenv("CADENCE_TPU_VISIBILITY_CAPACITY", "64")
+    pair = Pair()
+    for i in range(8):
+        pair.start(DOMAIN, f"w{i}", f"r{i}", "t", i, search_attrs={"Num": i})
+    assert pair.count("") == 8  # the bootstrap restage: no delta yet
+    tv = pair.t._device
+    assert tv._feed is None
+    builds = []
+    for i in range(3):  # one-row deltas: one table, one host block
+        pair.write("record_closed", DOMAIN, f"w{i}", f"r{i}", 100 + i, 1)
+        assert pair.count("CloseStatus = 1") == i + 1
+        builds.append((tv._feed.table_builds, tv._feed._host.data_ptr()))
+        assert tv._feed.table.key == _feed_key(tv)
+    assert builds == [builds[0]] * 3 and builds[0][0] == 1
+    for i in range(8, 100):  # growth: the drain restages at 128 rows
+        pair.start(DOMAIN, f"w{i}", f"r{i}", "t", i, search_attrs={"Num": i})
+    assert pair.count("") == 100 and tv.capacity == 128
+    assert tv._feed.table_builds == 1
+    pair.write("record_closed", DOMAIN, "w50", "r50", 150, 2)
+    assert pair.count("CloseStatus = 2") == 1
+    assert tv._feed.table_builds == 2 and tv._feed.table.key == _feed_key(tv)
+    # a new attribute column restages; the next delta builds a third table
+    pair.write("upsert_search_attributes", DOMAIN, "w60", "r60", {"Fresh": 1.5})
+    assert pair.count("Fresh > 1") == 1
+    pair.write("upsert_search_attributes", DOMAIN, "w61", "r61", {"Fresh": 2.5})
+    assert pair.count("Fresh > 1") == 2
+    assert tv._feed.table_builds == 3 and tv._feed.table.key == _feed_key(tv)
+    # a delta of 90 rows (a 128-row bucket) grows the host block
+    small = tv._feed._host.numel()
+    for i in range(10, 100):
+        pair.write("record_closed", DOMAIN, f"w{i}", f"r{i}", 300 + i, 3)
+    assert pair.count("CloseStatus = 3") == 90
+    assert tv._feed._host.numel() >= 2 * small and tv._feed.table_builds == 3
+    pair.check_stats()

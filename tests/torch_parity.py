@@ -212,7 +212,9 @@ def reference_native() -> None:
 #: A stand-in for the CUDA runtime, enough for a csrc/ kernel's device code
 #: to compile as host C++: the qualifiers empty, blockIdx and threadIdx
 #: globals that a host loop sets, CUDA's vector types, and the intrinsics
-#: the kernels use as the compiler's builtins or plain stores.
+#: the kernels use as the compiler's builtins, plain loads and stores, or
+#: their bit arithmetic (one thread at a time: atomics are plain updates).
+#: It has no warp intrinsics: a harness does a warp's ballot itself.
 HOST_CUDA_RUNTIME = r"""
 #pragma once
 #include <cstdint>
@@ -227,6 +229,7 @@ HOST_CUDA_RUNTIME = r"""
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __align__(x) __attribute__((aligned(x)))
+#define __grid_constant__
 struct uint3 { unsigned x, y, z; };
 inline uint3 blockIdx, threadIdx, blockDim;
 struct uint4 { unsigned x, y, z, w; };
@@ -243,6 +246,24 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline void __syncthreads() {}
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  unsigned long long old = *p;
+  *p += v;
+  return old;
+}
+inline double __longlong_as_double(long long x) { double d; std::memcpy(&d, &x, 8); return d; }
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = (static_cast<unsigned long long>(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= static_cast<unsigned>((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
 """
 
 
