@@ -14,6 +14,7 @@ returns a CUDA error raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import glob
@@ -192,9 +193,15 @@ launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "replay_global": 
             "vis_topk_table": 0, "vis_apply": 0}
 
 
+#: launches by (kernel, the shape of its first tensor argument), counted
+#: beside `launches`
+launch_shapes = collections.Counter()
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launch_shapes.clear()
 
 
 def caps(layout):
@@ -221,6 +228,14 @@ def require(t, dtype, shape, what: str, device=None) -> None:
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: not contiguous")
+
+
+def aligned(t, align: int = 16):
+    """`t`, or a copy of it on its device where its data does not start on
+    an `align`-byte boundary (kernels C and D read rows in 16-byte units
+    from the base on). Every fresh allocation is aligned; a slice may not
+    be."""
+    return t.clone() if t.data_ptr() % align else t
 
 
 #: the state tensors in the order csrc/state.cuh indexes them
@@ -285,10 +300,12 @@ def launcher(name: str, fn, *args):
     import torch
 
     c_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args)
+    shape = (name, next((tuple(a.shape) for a in args if isinstance(a, torch.Tensor)), ()))
 
     def launch():
         check(fn(*c_args), name)
         launches[name] += 1
+        launch_shapes[shape] += 1
 
     launch.args = args  # the tensors the pointers point into live as long as the launch
     launch.name = name

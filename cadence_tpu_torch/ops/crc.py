@@ -74,11 +74,14 @@ def crc32_rows(rows: torch.Tensor) -> torch.Tensor:
 
 
 def crc32_launch(rows: torch.Tensor):
-    """Check what kernel C takes; return (its launch, the [W] int64 output
-    it writes)."""
+    """Check what kernel C takes (contiguous [W, width] int64 rows on the
+    card; rows off a 16-byte boundary are copied, as the kernel copies them
+    in 16-byte units); return (its launch, the [W] int64 output it
+    writes)."""
     if rows.dim() != 2:
         raise ValueError(f"crc32_rows: expected [W, width] rows, got {tuple(rows.shape)}")
     _build.require(rows, torch.int64, rows.shape, "crc32_rows rows")
+    rows = _build.aligned(rows)
     W, width = rows.shape
     out = torch.empty((W,), dtype=torch.int64, device=rows.device)
     return _build.launcher("crc32", _build.load().cadence_crc32, rows, out, W, width,

@@ -475,14 +475,16 @@ def verify_rows(rows, expected_rows, branch, expected_branch,
 
 
 def verify_launch(rows, expected_rows, branch, expected_branch):
-    """Check what kernel D takes; return (its launch, the [W] bool output
-    it writes)."""
+    """Check what kernel D takes (a row tensor off a 16-byte boundary is
+    copied, as the kernel reads rows in 16-byte units); return (its launch,
+    the [W] bool output it writes)."""
     dev = rows.device
     if rows.dim() != 2:
         raise ValueError(f"verify_rows: expected [W, width] rows, got {tuple(rows.shape)}")
     W, width = rows.shape
     _build.require(rows, torch.int64, (W, width), "rows", dev)
     _build.require(expected_rows, torch.int64, (W, width), "expected_rows", dev)
+    rows, expected_rows = _build.aligned(rows), _build.aligned(expected_rows)
     branch = branch.contiguous()
     expected_branch = expected_branch.contiguous()
     _build.require(branch, torch.int32, (W,), "branch", dev)

@@ -9,9 +9,10 @@
     python3 chip_smoke.py --visibility-only  # the build, kernel_vis, vis_staging
                                      # and visibility_path
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
-                                     # checkout's kernels A, B, G, I, J, K, L and
-                                     # A's generator reader (and VARIANTS) in
-                                     # kernel_launch_shapes and kernel_vis
+                                     # checkout's kernels A, B, C, D, G, H, I, J,
+                                     # K, L and A's generator reader (and
+                                     # VARIANTS) in kernel_launch_shapes and
+                                     # kernel_vis
 
 Phases, one JSON line each:
   1. probe: card, power limit, torch, CUDA, SM version, nvcc and Triton
@@ -93,7 +94,13 @@ Phases, one JSON line each:
      columns held to its host columns after one-row, backlog and
      new-column drains; with --parent DIR and --variants, other builds on
      the same arguments (the same entry points), held equal and timed in
-     the same call.
+     the same call. Kernel C at 4,096, 16,384, 40,960 and 131,072 rows of
+     kernel B's suites-8k rows tiled to size (equal to its plain version
+     and, on 256 sampled rows, zlib.crc32), kernel D at 4,096 and 40,960
+     rows with verify_path's rate of altered rows and with none (equal to
+     its plain version, beside its yardstick), verify_rows()'s host time
+     at 4,096 behind a spin kernel (reduce_shapes), and kernels H and F at
+     candidate widths for the next redesign (next_shapes).
      kernel_replay_traps: kernel A (every reader, with and without tasks)
      and kernel B against their plain versions on gen/lanes.py
      trap_corpus states at x1, x2, x4 and x8 and random lanes at x8, every
@@ -201,11 +208,12 @@ Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
 rebuild_path, verify_path, resident_path, serving_path, visibility_path)
 runs with every launch count set to 0 just before it and read just after,
-and fails if a kernel of that path was never launched. The last lines are the launch
-counts, the card's name and power limit, the per-kernel table, and
-{"ok": true, "device": {...}}. Any failed check raises: the script then
-exits non-zero and prints no "ok" line. Without CUDA it exits non-zero at
-once.
+and fails if a kernel of that path was never launched; the shape of every
+launch of kernels C, D, F and H is counted by path (launch_shapes_by_path,
+from _build.launch_shapes). The last lines are the launch counts, the
+card's name and power limit, the per-kernel table, and {"ok": true,
+"device": {...}}. Any failed check raises: the script then exits non-zero
+and prints no "ok" line. Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -820,8 +828,24 @@ def decode_ops(profile, rows: int) -> int:
     return rows * sum(3 * e.width + 3 if e.width else 1 for e in profile)
 
 
-def check_launches(launches: dict, path: str, kernels) -> None:
-    """Fail unless every kernel of `path` launched in its run."""
+#: the kernels whose launches check_launches logs by shape (_build.launch_shapes:
+#: C's and D's rows [W, width], F's error [W], H's output [W])
+SHAPE_KERNELS = ("crc32", "verify_rows", "stats", "narrow_ok")
+#: path -> kernel -> "W x width" -> launches, from each path's check_launches
+SHAPES_BY_PATH = {}
+
+
+def check_launches(launches: dict, path: str, kernels, shapes=None) -> None:
+    """Fail unless every kernel of `path` launched in its run; log its
+    launches of SHAPE_KERNELS by shape (`shapes`, or _build.launch_shapes
+    since the run's reset_launches) in SHAPES_BY_PATH."""
+    from cadence_tpu_torch.ops import _build
+
+    got = {k: {} for k in SHAPE_KERNELS}
+    for (kernel, shape), n in sorted((_build.launch_shapes if shapes is None else shapes).items()):
+        if kernel in got:
+            got[kernel][" x ".join(map(str, shape))] = n
+    SHAPES_BY_PATH[path] = got
     for k in kernels:
         if launches[k] == 0:
             fail(f"{path}: kernel {k} was never launched")
@@ -2097,10 +2121,29 @@ ENTRY = {"replay": "cadence_replay", "replay_tasks": "cadence_replay_tasks",
          "rehome": "cadence_rehome", "gen_lanes": "cadence_gen_lanes",
          "replay_gen": "cadence_replay_gen", "vis_mask": "cadence_vis_mask",
          "vis_mask_table": "cadence_vis_mask_table", "vis_topk": "cadence_vis_topk",
-         "vis_topk_table": "cadence_vis_topk_table", "vis_apply": "cadence_vis_apply"}
+         "vis_topk_table": "cadence_vis_topk_table", "vis_apply": "cadence_vis_apply",
+         "crc32": "cadence_crc32", "verify_rows": "cadence_verify_rows",
+         "narrow_ok": "cadence_narrow_ok", "stats": "cadence_stats"}
 #: the kernels kernel_launch_shapes times, by the source files that build them
 #: (and kernel A's entry points, replay*.cu)
-SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu", "scan.cu")
+SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu", "scan.cu", "crc32.cu", "verify.cu")
+#: the rows kernel C is launched with: feeder_path's 4,096-workflow chunks,
+#: north_star's 16,384 and 131,072 chunks, the main path's bulk (40,960)
+C_SHAPES = (4096, 16384, 40960, 131072)
+#: the rows kernel D is launched with: verify_all's 4,096-key chunks and the
+#: main path's bulk
+D_SHAPES = (4096, 40960)
+#: verify_path's alterations: 64 live states of 24,576 (about 11 a 4,096
+#: chunk), half in a payload word and half in the current branch
+D_ALTERED = (64, 24576)
+#: rows kernel H (narrow_ok on a rung-1 state) and kernel F (stats) are
+#: timed at, for the next redesign's ranking: H at serving's 8- and 32-row
+#: flushes, the resident pool's 64-row groups and a 4,096-row chunk; F at
+#: the W its launches have (launch_shapes_by_path): the resident pool's 64,
+#: verify_all's 4,096 chunks and their halves on a mesh of two, the wirec
+#: mesh's 10,240, the main path's 20,480 and 40,960
+H_SHAPES = (8, 32, 64, 4096)
+F_SHAPES = (64, 2048, 4096, 10240, 20480, 40960)
 
 
 def build_entries(csrc: str, sources, subs=()):
@@ -2282,10 +2325,11 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
             outputs_equal(got_out, want_out, f"{key}: {who} against the port")
         other = lambda lib: lambda: made(lib)[0]  # noqa: E731
         runs = {}
-        if parent is not None:
+        timed_parent = parent is not None and ENTRY[name] in parent.entries
+        if timed_parent:
             runs["parent"] = [cuda_ms(launch, setup=other(parent))]
         runs["change"] = [cuda_ms(launch, setup=lambda: make()[0])
-                          for _ in range(2 if parent is not None else 1)]
+                          for _ in range(2 if timed_parent else 1)]
         for who, lib in mine:
             runs.setdefault(who, []).append(cuda_ms(launch, setup=other(lib)))
         # the card's time alone, behind a queued spin kernel
@@ -2410,10 +2454,124 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
                                  s),
               Wg * row_bytes, ops_check * Wg // GEN_CHECK_W)
         torch.cuda.empty_cache()
+    reduce = reduce_shapes(finals[W_all], dev, timed)
+    next_shapes(finals[CHUNK_W], finals[W_all], dev, timed)
     vis_shapes(dev, timed)
     vis_feeds = vis_staging(dev)
     return {"floor_ms": floor, "floor_device_ms": floor_device, "shapes": shapes,
-            "rehome_staging": staging, "gen_lanes_max_abs_err": gen_err, "vis_staging": vis_feeds}
+            "rehome_staging": staging, "gen_lanes_max_abs_err": gen_err, "vis_staging": vis_feeds,
+            "reduce_shapes": reduce}
+
+
+def next_shapes(chunk, bulk, dev, timed) -> None:
+    """Kernels H and F, the next redesigns' candidates, timed (as launched
+    and on the card alone) at H_SHAPES and F_SHAPES: H on the first rows of
+    the chunk's final state widened to rung 1 with rows made unfit on every
+    rule (as kernel_narrow_ok makes them), F on the bulk's error and close
+    status tiled to size; each equal to its plain version."""
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.ops import rehome as RH
+    from cadence_tpu_torch.ops.state import narrow_ok_plain, widen_layout
+    from cadence_tpu_torch.ops.stats import stats_launch, stats_plain
+
+    L1 = widen_layout(L, 2)
+    past = sum(getattr(L1, f) - getattr(L, f) for f in (
+        "max_activities", "max_timers", "max_children", "max_request_cancels", "max_signals"))
+    for n in H_SHAPES:
+        h = RH.rehome(chunk, torch.arange(n, device=dev) % chunk.state.shape[0], L1)
+        h.activities.occ[::5, L.max_activities + 3] = True
+        h.timers.occ[1::7, L.max_timers] = True
+        h.vh_count[3::13, L.max_branches] = 1
+        timed(f"narrow_ok {n}", "narrow_ok", lambda h=h: kept(*RH.narrow_ok_launch(h, L)),
+              n * (4 + 4 * L1.max_branches + past + 1), n * (2 * L1.max_branches + past + 2),
+              check=(narrow_ok_plain(h, L),))
+    for n in F_SHAPES:
+        reps = -(-n // bulk.error.shape[0])
+        err, close = (t.repeat(reps)[:n].clone() for t in (bulk.error, bulk.close_status))
+        timed(f"stats {n}", "stats", lambda err=err, close=close: kept(*stats_launch(err, close)),
+              n * 8 + 16, 4 * n, check=(stats_plain(err, close),))
+
+
+def reduce_shapes(state, dev, timed, reps: int = REPS) -> dict:
+    """Kernels C and D at their launch shapes (C_SHAPES, D_SHAPES), on
+    kernel B's rows of `state` (the bulk's final state) tiled to size, each
+    through `timed` (as launched and on the card alone, beside its bound,
+    the parent and the variants). C is held to crc32_rows_plain and, on 256
+    sampled rows, to zlib.crc32; D to verify_rows_plain at verify_path's
+    rate of altered rows (D_ALTERED) and with none (every row read whole),
+    beside its yardstick, (rows != expected).any(1) | (branch !=
+    expected_branch), on the card alone. Then the host's time in one
+    verify_rows() call at 4,096 rows as the engine makes it (every input
+    already on the card), in verify_launch and in the bare launch, each
+    behind a queued spin kernel. Returns the yardstick and host times."""
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.ops import replay as R
+    from cadence_tpu_torch.ops.crc import crc32_launch, crc32_rows_plain
+    from cadence_tpu_torch.ops.payload import payload_rows
+
+    base = payload_rows(state, L)
+    width = base.shape[1]
+    g = torch.Generator().manual_seed(SEED)
+
+    def tiled(t, n):  # a fresh [n, ...] tensor of t's rows, repeated
+        return t.repeat((-(-n // t.shape[0]),) + (1,) * (t.dim() - 1))[:n].clone()
+
+    for n in C_SHAPES:
+        rows = tiled(base, n)
+        want = crc32_rows_plain(rows)
+        pick = torch.randint(0, n, (256,), generator=g)
+        zl = [zlib.crc32(r.astype("<i8").tobytes()) for r in rows[pick.to(dev)].cpu().numpy()]
+        if want[pick.to(dev)].cpu().tolist() != zl:
+            fail(f"crc32 {n}: the plain version differs from zlib")
+        timed(f"crc32 {n}", "crc32", lambda rows=rows: kept(*crc32_launch(rows)),
+              n * (width * 8 + 8), n * width * 24, check=(want,))
+        del rows, want
+    out = {"yardstick": "(rows != expected).any(1) | (branch != expected_branch)",
+           "yardstick_device_ms": {}}
+    for n in D_SHAPES:
+        rows, branch = tiled(base, n), tiled(state.current_branch, n)
+        for rate, k in (("verify_path", round(n * D_ALTERED[0] / D_ALTERED[1])), ("none", 0)):
+            exp, exp_br = rows.clone(), branch.clone()
+            idx = torch.randperm(n, generator=g)[:k].to(dev)
+            cols = torch.randint(0, width, (k // 2,), generator=g).to(dev)
+            exp[idx[:k // 2], cols] += 1
+            exp_br[idx[k // 2:]] = 1 - exp_br[idx[k // 2:]]
+            want = R.verify_rows_plain(rows, exp, branch, exp_br)
+            if int(want.sum()) != k:
+                fail(f"verify_rows {n} {rate}: {int(want.sum())} rows flagged, {k} altered")
+            key = f"verify_rows {n} {rate}"
+            timed(key, "verify_rows",
+                  lambda exp=exp, exp_br=exp_br: kept(*R.verify_launch(rows, exp, branch, exp_br)),
+                  n * (2 * width * 8 + 2 * 4 + 1), n * (width + 1), check=(want,))
+            out["yardstick_device_ms"][key] = cuda_ms(
+                lambda _, exp=exp, exp_br=exp_br: R.verify_rows_plain(rows, exp, branch, exp_br),
+                behind=True)
+        if n == min(D_SHAPES):  # the wrapper's host time, as the engine calls it
+            spin_ms = cuda_ms(lambda _: torch.cuda._sleep(STAGING_SPIN_CYCLES))
+            run, _ = R.verify_launch(rows, exp, branch, exp_br)
+            calls = {"verify_rows": lambda: R.verify_rows(rows, exp, branch, exp_br, device=dev),
+                     "verify_launch": lambda: R.verify_launch(rows, exp, branch, exp_br)[0](),
+                     "launch": run}
+            host = {}
+            for name, call in calls.items():
+                times = []
+                for _ in range(reps + 1):
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(STAGING_SPIN_CYCLES)
+                    t0 = time.perf_counter()
+                    call()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+                host[name] = statistics.median(times[1:])
+            out["host_ms_at_4096"] = host
+            out["spin_ms"] = spin_ms
+        del rows, branch, exp, exp_br
+    emit("reduce_shapes", **out)
+    return out
 
 
 def burst_table(records: int, ties: int, capacity: int, seed: int):
@@ -2877,7 +3035,9 @@ def rehome_staging(events_np, slab_src, dev, reps: int = REPS) -> dict:
 #: generator reader takes); kernel A's generator reader with act_all run
 #: once at the step's action before its switch on the replay's effects;
 #: kernel J with 2 and 8 rows a lane in a tile (J_ROWS; the port's is 4),
-#: and with 2 and 4 leaves' loads issued ahead (J_AHEAD; the port's is 1).
+#: and with 2 and 4 leaves' loads issued ahead (J_AHEAD; the port's is 1);
+#: kernel C with each row split among 1, 2, 4 and 8 lanes at every W
+#: (C_SPLIT; the port's 0 picks from W).
 #: Built and timed with --variants (all, or the names given)
 A_SOURCES = ("replay.cu", "replay_tasks.cu", "replay_global.cu")
 #: the actions whose update act_all makes (csrc/genkernel.cuh; A_SIGNAL and
@@ -2922,6 +3082,9 @@ VARIANTS = {
                                  "constexpr int J_AHEAD = 2;"),)),
     "j_ahead4": (("scan.cu",), (("scan.cu", "constexpr int J_AHEAD = 1;",
                                  "constexpr int J_AHEAD = 4;"),)),
+    **{f"crc_split{n}": (("crc32.cu",), (("crc32.cu", "constexpr int C_SPLIT = 0;",
+                                          f"constexpr int C_SPLIT = {n};"),))
+       for n in (1, 2, 4, 8)},
     "gen_act_all_once": (("replay_gen.cu",), (
         ("replay_gen.cuh", "    switch (code) {\n",
          "    gen::act_all(g, d, ev_id, code, a);\n    switch (code) {\n"),
@@ -2950,6 +3113,19 @@ def jl_ptxas(build_log: str) -> dict:
     return {"vis_mask": ptxas_usage(build_log, "vis_mask_kernel", "ValuePlan"),
             "vis_mask_table": ptxas_usage(build_log, "vis_mask_kernel", "TablePlan"),
             "vis_apply": ptxas_usage(build_log, "vis_apply_kernel")}
+
+
+def cd_ptxas(build_log: str) -> dict:
+    """Registers and spills of kernels C (each instance) and D in a build
+    log."""
+    out = {"verify_rows": ptxas_usage(build_log, "verify_kernel")}
+    for p in (1, 2, 4, 8):
+        found = ptxas_usage(build_log, f"crc32_kernelILi{p}E")
+        if found:
+            out[f"crc32 lanes{p}"] = found
+    if not any(k.startswith("crc32") for k in out):
+        out["crc32"] = ptxas_usage(build_log, "crc32_kernel")
+    return out
 
 
 def gen_ptxas(build_log: str) -> dict:
@@ -2996,12 +3172,16 @@ def launch_shapes_phase(args, events_np, dev) -> dict:
          ptxas_kernel_i=ptxas_usage(_build.build_log, "gen_lanes_kernel"),
          ptxas_replay_gen=gen_ptxas(_build.build_log),
          ptxas_kernels_j_l=jl_ptxas(_build.build_log),
+         ptxas_kernels_c_d=cd_ptxas(_build.build_log),
          ptxas_parent_j_l={b[0]: jl_ptxas(log) for b, (_, log) in zip(builds, built)
                            if b[0] == "parent"},
          ptxas_variants={b[0]: {**a_ptxas(log), "rehome": ptxas_usage(log, "rehome_kernel"),
                                 "gen_lanes": ptxas_usage(log, "gen_lanes_kernel"),
-                                "replay_gen": gen_ptxas(log), **jl_ptxas(log)}
-                         for b, (_, log) in zip(builds, built) if b[0] != "parent"})
+                                "replay_gen": gen_ptxas(log), **jl_ptxas(log),
+                                **cd_ptxas(log)}
+                         for b, (_, log) in zip(builds, built) if b[0] != "parent"},
+         ptxas_parent_c_d={b[0]: cd_ptxas(log) for b, (_, log) in zip(builds, built)
+                           if b[0] == "parent"})
     return out
 
 
@@ -3020,6 +3200,12 @@ def attach_launch_shapes(records, out) -> None:
             rec["staging_behind_kernel_a"] = out["rehome_staging"]
         if rec["name"] in ("vis_mask", "vis_apply"):
             rec["feeds_behind_a_spin_kernel"] = out["vis_staging"]
+        if rec["name"] in SHAPE_KERNELS:
+            rec["launch_shapes_by_path"] = {path: got[rec["name"]]
+                                            for path, got in SHAPES_BY_PATH.items()
+                                            if got[rec["name"]]}
+        if rec["name"] == "verify_rows":
+            rec.update(out["reduce_shapes"])
 
 
 #: trap_corpus's rows (a multiple of its six kinds) and events, and the
@@ -3158,6 +3344,7 @@ def north_star(args, corp, dev):
     mesh = Mesh([dev])
     row_bytes = state_bytes(init_state(1, device=dev))
     launches = Counter()  # the timed chunk loops' launches, summed over the chunk sizes
+    shapes = Counter()  # and by shape
     runs, firsts = [], []
     for chunk in args.ns_chunks:
         chunk = min(chunk, args.ns_workflows)
@@ -3189,6 +3376,7 @@ def north_star(args, corp, dev):
                 firsts.append(crc_np)
         wall = time.perf_counter() - t_start
         launches.update(_build.launches)
+        shapes.update(_build.launch_shapes)
         if errors_total:
             fail(f"north_star at chunk {chunk}: {errors_total} error workflows")
         if not np.array_equal(firsts[-1][:len(firsts[0])], firsts[0][:len(firsts[-1])]):
@@ -3201,7 +3389,7 @@ def north_star(args, corp, dev):
                      "error_workflows": errors_total, "crc_xor": crc_xor,
                      "state_bytes": chunk * row_bytes})
     launches = dict(launches)
-    check_launches(launches, "north_star", NORTH_STAR_KERNELS)
+    check_launches(launches, "north_star", NORTH_STAR_KERNELS, shapes)
 
     # bench.py's parity leg: kernel I makes the sampled workflows' lanes on
     # the card (the fused path never holds them), the oracle replays them in
@@ -4060,6 +4248,7 @@ def main() -> int:
              "serving_path": serving_launches, "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
+    emit("launch_shapes_by_path", **SHAPES_BY_PATH)
     print(json.dumps({"launches": paths}))
     print(smi)
     print(json.dumps({"kernels": records, "device": name, "smi": smi,

@@ -211,15 +211,25 @@ def reference_native() -> None:
 
 #: A stand-in for the CUDA runtime, enough for a csrc/ kernel's device code
 #: to compile as host C++: the qualifiers empty, blockIdx and threadIdx
-#: globals that a host loop sets, CUDA's vector types, and the intrinsics
-#: the kernels use as the compiler's builtins, plain loads and stores, or
-#: their bit arithmetic (one thread at a time: atomics are plain updates).
-#: It has no warp intrinsics: a harness does a warp's ballot itself.
+#: (thread-local) globals that a host loop sets, CUDA's vector types, and
+#: the intrinsics the kernels use as the compiler's builtins, plain loads
+#: and stores, or their bit arithmetic (one thread at a time: atomics are
+#: plain updates). cp.async (cuda_pipeline.h's primitives) queues each
+#: thread's copies in groups and makes them at __pipeline_wait_prior, so a
+#: stage read before its wait holds the old bytes, as on the card.
+#: __shfl_xor_sync works over a simulated warp: host_warp(fn) runs fn(lane)
+#: for 32 lanes as threads that meet at each shuffle. A ballot has no
+#: stand-in: a harness makes a warp's ballot itself.
 HOST_CUDA_RUNTIME = r"""
 #pragma once
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
 #include <climits>
+#include <map>
+#include <mutex>
+#include <thread>
+#include <utility>
 #include <vector>
 #define __global__
 #define __device__
@@ -231,7 +241,8 @@ HOST_CUDA_RUNTIME = r"""
 #define __align__(x) __attribute__((aligned(x)))
 #define __grid_constant__
 struct uint3 { unsigned x, y, z; };
-inline uint3 blockIdx, threadIdx, blockDim;
+inline thread_local uint3 blockIdx, threadIdx;
+inline uint3 blockDim;
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct longlong2 { long long x, y; };
@@ -264,6 +275,72 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   for (int i = 0; i < 4; ++i) r |= static_cast<unsigned>((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
   return r;
 }
+struct HostCopy { void* dst; const void* src; size_t n, zfill; };
+struct HostPipe { std::vector<HostCopy> open; std::vector<std::vector<HostCopy>> groups; };
+inline std::map<std::pair<unsigned, unsigned>, HostPipe> host_pipes;  // by (block, thread)
+inline HostPipe& host_pipe() { return host_pipes[{blockIdx.x, threadIdx.x}]; }
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size, size_t zfill = 0) {
+  host_pipe().open.push_back({dst, src, size, zfill});
+}
+inline void __pipeline_commit() {
+  HostPipe& p = host_pipe();
+  p.groups.push_back(std::move(p.open));
+  p.open.clear();
+}
+inline void __pipeline_wait_prior(size_t prior) {
+  HostPipe& p = host_pipe();
+  while (p.groups.size() > prior) {
+    for (const HostCopy& c : p.groups.front()) {
+      std::memcpy(c.dst, c.src, c.n - c.zfill);
+      std::memset(static_cast<char*>(c.dst) + c.n - c.zfill, 0, c.zfill);
+    }
+    p.groups.erase(p.groups.begin());
+  }
+}
+struct HostWarp {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0;
+  unsigned long long generation = 0;
+  unsigned long long value[32];
+};
+inline HostWarp* host_warp_now = nullptr;
+inline thread_local int host_lane = 0;
+inline void host_warp_meet() {
+  HostWarp& w = *host_warp_now;
+  std::unique_lock<std::mutex> lock(w.m);
+  const unsigned long long g = w.generation;
+  if (++w.arrived == 32) {
+    w.arrived = 0;
+    ++w.generation;
+    w.cv.notify_all();
+  } else {
+    w.cv.wait(lock, [&] { return w.generation != g; });
+  }
+}
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int lane_mask, int = 32) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
+  std::memcpy(&host_warp_now->value[host_lane], &v, sizeof(T));
+  host_warp_meet();
+  T r;
+  std::memcpy(&r, &host_warp_now->value[host_lane ^ lane_mask], sizeof(T));
+  host_warp_meet();
+  return r;
+}
+template <class F> inline void host_warp(F fn) {
+  HostWarp w;
+  host_warp_now = &w;
+  const uint3 b = blockIdx;
+  std::vector<std::thread> lanes;
+  for (int l = 0; l < 32; ++l)
+    lanes.emplace_back([&, l] {
+      blockIdx = b;
+      host_lane = l;
+      fn(l);
+    });
+  for (std::thread& t : lanes) t.join();
+  host_warp_now = nullptr;
+}
 """
 
 
@@ -290,6 +367,7 @@ def host_kernel(tmp_dir, source: str, cut: str, harness: str, close: str = ""):
     assert cut in text, f"{source} no longer has {cut!r}"
     tmp = pathlib.Path(tmp_dir)
     (tmp / "cuda_runtime.h").write_text(HOST_CUDA_RUNTIME)
+    (tmp / "cuda_pipeline.h").write_text("#pragma once\n#include <cuda_runtime.h>\n")
     src, lib = tmp / (source + ".cpp"), tmp / (source + ".so")
     src.write_text(text[:text.index(cut)] + close + harness)
     done = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(tmp), "-I",
