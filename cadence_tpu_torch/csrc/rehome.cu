@@ -45,8 +45,11 @@
 // workflow, a [W] bool that the row fits the narrow layout (current
 // branch below B, no version history on a branch at or past B, no
 // branch with more than Kv items, no occupied table slot at or past the
-// narrow capacity). It reads about 70 bytes a row. It stays out of kernel
-// A's epilogue, which runs at 136-152 registers.
+// narrow capacity; its branch part is state.cuh `branches_fit`). It reads
+// about 70 bytes a row. It stays out of kernel A's epilogue, which runs at
+// 136-152 registers. The paths take the same flag from kernel B's fit
+// epilogue (payload.cu), launched on the same state just before; kernel H
+// serves ops/state.py `narrow_ok`'s direct callers.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -218,12 +221,8 @@ __global__ void narrow_ok_kernel(StatePtrs S, Caps cin, Caps cout, uint8_t* __re
                                  int64_t W) {
   const int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (w >= W) return;
-  bool ok = f32(S, F_CURRENT_BRANCH)[w] < cout.b;
-  const int32_t* count = f32(S, F_VH_COUNT) + w * cin.b;
-  for (int b = 0; b < cin.b; ++b) {
-    const int32_t c = count[b];
-    if ((b >= cout.b && c != 0) || c > cout.kv) ok = false;
-  }
+  bool ok = branches_fit(f32(S, F_CURRENT_BRANCH)[w], f32(S, F_VH_COUNT) + w * cin.b, cin.b,
+                         cout.b, cout.kv);
   if (occupied_past(S, F_ACT_OCC, w, cin.ka, cout.ka) ||
       occupied_past(S, F_TMR_OCC, w, cin.kt, cout.kt) ||
       occupied_past(S, F_CH_OCC, w, cin.kc, cout.kc) ||

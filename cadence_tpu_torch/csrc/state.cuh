@@ -63,6 +63,25 @@ __device__ __forceinline__ uint8_t* fb(const StatePtrs& s, int f) {
 
 constexpr int64_t PAD = int64_t(1) << 62;
 
+// The branch and version-history part of the JAX package's ops/state.py
+// `narrow_ok` rule, for one row of a state at b branches: the row fits
+// out_b branches of out_kv items each when its current branch is below
+// out_b, no branch at or past out_b holds an item and no branch holds more
+// than out_kv. `count` is the row's [b] vh_count. Kernel H (rehome.cu)
+// and kernel B's fit epilogue (payload.cu) both take it; the table part
+// of the rule (no occupied slot at or past the narrow capacity) each reads
+// from its own copy of the occupancy.
+__device__ __forceinline__ bool branches_fit(int32_t current_branch,
+                                             const int32_t* count, int b, int out_b,
+                                             int out_kv) {
+  bool ok = current_branch < out_b;
+  for (int i = 0; i < b; ++i) {
+    const int32_t c = count[i];
+    if ((i >= out_b && c != 0) || c > out_kv) ok = false;
+  }
+  return ok;
+}
+
 // The most dynamic shared memory a block may have on sm_90 (227 KB).
 constexpr int SMEM_LIMIT = 232448;
 

@@ -259,7 +259,8 @@ class EscalationLadder:
         stays O(new events).
 
         Returns (outcome, states_out): outcome aligned with `sub`;
-        states_out[k] = (the rung's final state, the row in it, rung) of
+        states_out[k] = (the rung's final state, the row in it, rung,
+        whether the row fits the base layout: kernel B's fit epilogue) of
         the rung that resolved row k, or None."""
         from ..ops.payload import payload_rows_narrow
         from ..ops.rehome import rehome
@@ -287,9 +288,9 @@ class EscalationLadder:
                 s = rehome(states, list(local) + [-1] * (padded.shape[0] - n),
                            self.rung_layout(rung))
                 replay_scan(s, _to_device(padded, dev))
-                rows_d, ovf_d = payload_rows_narrow(s, self.layout)
-            rows, err, ovf, branch = (a[:n].cpu().numpy()
-                                      for a in (rows_d, s.error, ovf_d, s.current_branch))
+                rows_d, ovf_d, fit_d = payload_rows_narrow(s, self.layout, fit=True)
+            rows, err, ovf, branch, fit = (a[:n].cpu().numpy() for a in (
+                rows_d, s.error, ovf_d, s.current_branch, fit_d))
             self._record_rung(rung, n, time.perf_counter() - t0)
             ok = (err == 0) & ~ovf
             for k in np.nonzero(ok)[0]:
@@ -297,7 +298,7 @@ class EscalationLadder:
                 rows_out[gi] = rows[k]
                 resolved[gi] = True
                 branch_out[gi] = branch[k]
-                states_out[gi] = (s, int(k), rung)
+                states_out[gi] = (s, int(k), rung, bool(fit[k]))
             err_out[active] = err
             still = self.capacity_flagged(err)
             if not len(still):

@@ -18,7 +18,7 @@ the JAX package's engine/resident.py under the same names:
   widens the PRE-append states and re-replays just the suffix
   (engine/ladder.escalate_resident); resolved rows stay resident at the
   widened layout and re-narrow to the base layout once their pending
-  load drains (ops/state.narrow_ok, kernel H);
+  load drains (ops/state.narrow_ok's rule, from kernel B's fit epilogue);
 - under a mesh (set_mesh) the pool shards across `mesh.devices` by
   parallel/mesh.workflow_shard: the budget splits into equal slices, each
   with its own LRU order, and each group's append runs on its device.
@@ -686,21 +686,24 @@ class ResidentStateCache:
                 report.events_appended += events
                 scope.inc(m.M_RESIDENT_EVENTS_APPENDED, events)
                 replay_scan(s0, _to_device(corpus, device))
-                rows, ovf = payload_rows_narrow(s0, self.layout)
-            return corpus, s0, rows, ovf
+                # above base, kernel B also tests each row's fit to base
+                # (its fit epilogue), read back with the chunk's outputs
+                rows, ovf, *fit = payload_rows_narrow(s0, self.layout, fit=rung > 0)
+            return corpus, s0, rows, ovf, fit
 
         def consume(ci, launched):
-            corpus, s_fin, rows, ovf = launched
+            corpus, s_fin, rows, ovf, fit = launched
             return (corpus, s_fin, rows.cpu().numpy(), s_fin.error.cpu().numpy(),
-                    ovf.cpu().numpy(), s_fin.current_branch.cpu().numpy())
+                    ovf.cpu().numpy(), s_fin.current_branch.cpu().numpy(),
+                    fit[0].cpu().numpy() if fit else None)
 
         chunk_outs, _report = executor.run(len(spans), pack, launch, consume)
 
-        for (lo, hi), (corpus, s_fin, rows, err, ovf, branch) in zip(spans, chunk_outs):
+        for (lo, hi), (corpus, s_fin, rows, err, ovf, branch, narrow_mask) in zip(spans,
+                                                                                  chunk_outs):
             group = idxs[lo:hi]
             flagged = [j for j in range(len(group))
                        if err[j] in CAPACITY_ERRORS or (err[j] == 0 and ovf[j])]
-            narrow_mask = self._narrow_mask(s_fin, rung)
             for j, i in enumerate(group):
                 if j in flagged:
                     continue
@@ -715,14 +718,6 @@ class ResidentStateCache:
             if flagged:
                 self._escalate(items, [group[j] for j in flagged], corpus[flagged], rung,
                                results, report, address_of=address_of)
-
-    def _narrow_mask(self, s_fin: ReplayState, rung: int):
-        """[W] bool of rows that can re-narrow to base (kernel H), None at
-        base."""
-        if rung == 0:
-            return None
-        from ..ops.state import narrow_ok
-        return narrow_ok(s_fin, self.layout).cpu().numpy()
 
     def _readmit(self, key, address: ContentAddress, s_fin: ReplayState, row: int, payload,
                  branch: int, rung: int, narrowable: bool) -> AppendResult:
@@ -754,8 +749,6 @@ class ResidentStateCache:
         pre_states = self.gather([items[i][1] for i in flat_idxs])
         trimmed = gather_subcorpus(sub, np.arange(sub.shape[0]))
         outcome, states_out = self.ladder.escalate_resident(trimmed, pre_states, base_rung=rung)
-        #: (id of rung state, rung) -> narrow mask, once per distinct state
-        masks: Dict[tuple, object] = {}
         for k, i in enumerate(flat_idxs):
             key, entry, batches = items[i]
             if not outcome.resolved[k]:
@@ -767,14 +760,9 @@ class ResidentStateCache:
                 self.invalidate(key)
                 results[i] = AppendResult(ok=False, error=err, escalated=True)
                 continue
-            s_fin, local, got_rung = states_out[k]
-            mkey = (id(s_fin), got_rung)
-            if mkey not in masks:
-                masks[mkey] = self._narrow_mask(s_fin, got_rung)
-            narrow_mask = masks[mkey]
+            s_fin, local, got_rung, fits = states_out[k]
             res = self._readmit(key, address_of(batches), s_fin, local, outcome.rows[k],
-                                int(outcome.branch[k]), got_rung,
-                                bool(narrow_mask[local]) if narrow_mask is not None else False)
+                                int(outcome.branch[k]), got_rung, fits)
             res.escalated = True
             results[i] = res
 

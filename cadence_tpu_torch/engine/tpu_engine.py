@@ -16,9 +16,10 @@ packing of chunk N+1 overlaps the device replay of chunk N, each
 workflow's lanes come from the content-addressed pack cache
 (engine/cache.PackCache), and the compare runs on the devices: the
 expected rows ship with the corpus, kernel D writes a mismatch bit per
-workflow, and the host reads back that bitmap, each shard's kernel F
-counts (16 bytes) and the error lanes of the shards whose counts say a
-row has an error, never the [W, width] rows.
+workflow, and the host reads back that bitmap, each shard's [2] error
+and closed counts (16 bytes, from kernel B's counts epilogue) and the
+error lanes of the shards whose counts say a row has an error, never the
+[W, width] rows.
 
 Chunks fan across the serving mesh (parallel/mesh.py): on a mesh of N,
 keys bucket by `workflow_shard`, so every workflow lands on its owning
@@ -52,9 +53,8 @@ from ..device import resolve_device
 from ..oracle.state_builder import StateBuilder
 from ..ops.encode import (LANE_EVENT_ID, LANE_EVENT_TYPE, NUM_LANES, assemble_corpus,
                           encode_segments, gather_subcorpus)
-from ..ops.payload import payload_rows
+from ..ops.payload import payload_rows, payload_rows_narrow
 from ..ops.replay import replay_events, verify_rows
-from ..ops.stats import stats
 from ..utils import metrics as m
 from ..utils.profiler import ReplayProfiler
 from .cache import PackCache
@@ -478,7 +478,7 @@ class TPUReplayEngine:
         its new batches against the pinned state (the resident pool's
         replay_append), and a failed append goes to the oracle. The cold
         keys run the chunked path: the expected rows ship with the corpus,
-        the host reads back a mismatch bitmap and, where kernel F's counts
+        the host reads back a mismatch bitmap and, where kernel B's counts
         show a row with an error, the error lanes; each chunk's
         verified-clean rows are admitted to the pool from the escalate
         hook. Capacity-flagged rows escalate through the widened-K ladder:
@@ -556,9 +556,9 @@ class TPUReplayEngine:
         def shard(dev, part):
             ev, exp, exp_br = part
             state = replay_events(ev, self.layout, dev)
-            rows_dev = payload_rows(state, self.layout)
+            rows_dev, _overflow, counts = payload_rows_narrow(state, self.layout, counts=True)
             mismatch = verify_rows(rows_dev, exp, state.current_branch, exp_br, device=dev)
-            return mismatch, state, stats(state.error, state.close_status)
+            return mismatch, state, counts
 
         def launch(parts, extras):
             expected, exp_branch = extras

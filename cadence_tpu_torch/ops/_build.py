@@ -124,8 +124,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     # slab, bases, n_events, out, W, E, B, K, profile table, stream
     lib.cadence_decode_wirec.argtypes = [P, P, P, P, L, L, I, I, P, P]
     lib.cadence_payload.restype = I
-    # state pointer table, rows, overflow, W, K[5], B, Kv, out caps[5], out Kv, width, stream
-    lib.cadence_payload.argtypes = [P, P, P, L, P, I, I, P, I, I, P]
+    # state pointer table, rows, overflow, W, K[5], B, Kv, out caps[5], out Kv, width, out B,
+    # fit, counts, counts scratch (the last three null when not asked for), stream
+    lib.cadence_payload.argtypes = [P, P, P, L, P, I, I, P, I, I, I, P, P, P, P]
     lib.cadence_crc32.restype = I
     lib.cadence_crc32.argtypes = [P, P, L, I, P]  # rows, out, W, width, stream
     lib.cadence_verify_rows.restype = I
@@ -185,9 +186,11 @@ def check(rc: int, what: str) -> None:
 #: nowhere else (the plain versions never count)
 #: (kernel A's global route counts under its own names: replay_global,
 #: replay_tasks_global, replay_wirec_global; kernels J's and K's table
-#: route as vis_mask_table and vis_topk_table)
+#: route as vis_mask_table and vis_topk_table; kernel B's launches that run
+#: its fit or counts epilogue count also as payload_fit, payload_counts)
 launches = {"replay": 0, "replay_tasks": 0, "replay_wirec": 0, "replay_global": 0,
-            "replay_tasks_global": 0, "replay_wirec_global": 0, "payload": 0, "crc32": 0,
+            "replay_tasks_global": 0, "replay_wirec_global": 0, "payload": 0,
+            "payload_fit": 0, "payload_counts": 0, "crc32": 0,
             "verify_rows": 0, "decode_wirec": 0, "stats": 0, "rehome": 0, "narrow_ok": 0,
             "gen_lanes": 0, "replay_gen": 0, "vis_mask": 0, "vis_mask_table": 0, "vis_topk": 0,
             "vis_topk_table": 0, "vis_apply": 0}
@@ -291,21 +294,24 @@ def state_pointer_table(s: ReplayState):
     return (ctypes.c_uint64 * len(ptrs))(*ptrs)
 
 
-def launcher(name: str, fn, *args):
+def launcher(name: str, fn, *args, also=()):
     """A call that launches kernel `name`: it runs the C entry point `fn`
-    on `args` (tensors are passed as their device pointers), raises on the
-    cudaError_t it returns, and counts the launch. The wrappers make every
-    check and the argument list before this, once, so a timer can hold the
-    launch alone."""
+    on `args` (tensors are passed as their device pointers, None as a null
+    pointer), raises on the cudaError_t it returns, and counts the launch,
+    under `name` and under each of `also` (the epilogues it runs). The
+    wrappers make every check and the argument list before this, once, so
+    a timer can hold the launch alone."""
     import torch
 
     c_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args)
-    shape = (name, next((tuple(a.shape) for a in args if isinstance(a, torch.Tensor)), ()))
+    shape = next((tuple(a.shape) for a in args if isinstance(a, torch.Tensor)), ())
+    names = (name,) + tuple(also)
 
     def launch():
         check(fn(*c_args), name)
-        launches[name] += 1
-        launch_shapes[shape] += 1
+        for counted in names:
+            launches[counted] += 1
+            launch_shapes[(counted, shape)] += 1
 
     launch.args = args  # the tensors the pointers point into live as long as the launch
     launch.name = name

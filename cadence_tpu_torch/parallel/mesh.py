@@ -7,9 +7,9 @@ and lets XLA insert the one collective the replay needs, a psum of the
 [2] error/closed counts. Here a `Mesh` is a tuple of `torch.device`s. A
 corpus's workflow axis splits into `mesh.size` equal slices, each slice
 is copied to its device from page-locked memory, each shard runs its own
-launches on its own device (kernel A, B, C where the path hashes, and
-kernel F for the counts), and the host sums the shards' [2] counts: 16
-bytes read back per shard, no NCCL.
+launches on its own device (kernel A, B, C where the path hashes; the
+counts from kernel B's counts epilogue, kernel F's function), and the host
+sums the shards' [2] counts: 16 bytes read back per shard, no NCCL.
 
 A mesh may list one device more than once: the CPU tests model n shards
 as n slices of the CPU, and chip_smoke.py as n slices of one card. On
@@ -31,10 +31,9 @@ import torch
 from ..core.checksum import DEFAULT_LAYOUT, PayloadLayout
 from ..device import canonical_device, resolve_device
 from ..ops.crc import crc32_rows
-from ..ops.payload import payload_rows
+from ..ops.payload import payload_rows_narrow
 from ..ops.replay import (replay_escalated, replay_events, replay_events32, replay_wirec,
                           replay_wirec_escalated_crc)
-from ..ops.stats import stats
 from ..ops.wirec import WirecCorpus
 
 SHARD_AXIS = "shard"
@@ -193,10 +192,18 @@ def _gather_with_stats(mesh: Mesh, outs) -> Tuple[torch.Tensor, torch.Tensor, to
     return gather(mesh, first), gather(mesh, errors), sum_stats(counts)
 
 
+def _payload_and_counts(s, layout: PayloadLayout):
+    """A shard's payload rows and [2] counts: one kernel-B launch with its
+    counts epilogue."""
+    rows, _overflow, counts = payload_rows_narrow(s, layout, counts=True)
+    return rows, counts
+
+
 def _replay_with_stats(ev: torch.Tensor, layout: PayloadLayout):
-    """One shard: kernel A on int64 lanes, B, F."""
+    """One shard: kernel A on int64 lanes, B with its counts."""
     s = replay_events(ev, layout, ev.device)
-    return payload_rows(s, layout), s.error, stats(s.error, s.close_status)
+    rows, counts = _payload_and_counts(s, layout)
+    return rows, s.error, counts
 
 
 def replay_sharded(events, mesh: Mesh, layout: PayloadLayout = DEFAULT_LAYOUT
@@ -209,9 +216,10 @@ def replay_sharded(events, mesh: Mesh, layout: PayloadLayout = DEFAULT_LAYOUT
 
 
 def _replay_crc_with_stats(ev32: torch.Tensor, layout: PayloadLayout):
-    """One shard: kernel A on wire32 lanes, B, C, F."""
+    """One shard: kernel A on wire32 lanes, B with its counts, C."""
     s = replay_events32(ev32, layout, ev32.device)
-    return crc32_rows(payload_rows(s, layout)), s.error, stats(s.error, s.close_status)
+    rows, counts = _payload_and_counts(s, layout)
+    return crc32_rows(rows), s.error, counts
 
 
 def replay_sharded_crc(events32, mesh: Mesh, layout: PayloadLayout = DEFAULT_LAYOUT
@@ -225,9 +233,10 @@ def replay_sharded_crc(events32, mesh: Mesh, layout: PayloadLayout = DEFAULT_LAY
 
 
 def _replay_wirec_crc_with_stats(slab, bases, n_events, profile, layout: PayloadLayout):
-    """One shard: kernel A's wirec reader, B, C, F."""
+    """One shard: kernel A's wirec reader, B with its counts, C."""
     s = replay_wirec(slab, bases, n_events, profile, layout, slab.device)
-    return crc32_rows(payload_rows(s, layout)), s.error, stats(s.error, s.close_status)
+    rows, counts = _payload_and_counts(s, layout)
+    return crc32_rows(rows), s.error, counts
 
 
 def replay_wirec_sharded_crc(corpus: WirecCorpus, mesh: Mesh,

@@ -49,13 +49,17 @@ Phases, one JSON line each:
      against replay_tasks_scan_plain, the state against kernel A's outside
      the timer-created bits, the task streams against the oracle's on the
      sampled workflows, no overflow at 128/128 and the plain version's
-     overflow rows at 4/4), A's wirec reader, B, C, D, and kernel E
+     overflow rows at 4/4), A's wirec reader, B (also with its fit and
+     counts epilogues, each held to narrow_ok_plain and stats_plain), C,
+     D, and kernel E
      (decode_wirec), which must also give the lanes themselves and,
      replayed by kernel A, the fused reader's state, and kernel F (stats,
-     a shard's error and closed counts) with torch.count_nonzero as its
+     a shard's error and closed counts, for direct callers: the paths take
+     them from B's counts epilogue) with torch.count_nonzero as its
      yardstick, kernel G (rehome: a 4,096-row gather, scatter, widen and
      narrow with init rows) with one index_select per state tensor as its
-     yardstick, and kernel H (narrow_ok on a widened state).
+     yardstick, and kernel H (narrow_ok on a widened state, for direct
+     callers: the paths take it from B's fit epilogue, held to it there).
      kernel_gen_lanes: kernel I (the device generator's lanes) at 16,384 x
      1,000 (held to its plain version in kernel_launch_shapes, which runs
      first), every history running 1..E from
@@ -99,8 +103,10 @@ Phases, one JSON line each:
      and, on 256 sampled rows, zlib.crc32), kernel D at 4,096 and 40,960
      rows with verify_path's rate of altered rows and with none (equal to
      its plain version, beside its yardstick), verify_rows()'s host time
-     at 4,096 behind a spin kernel (reduce_shapes), and kernels H and F at
-     candidate widths for the next redesign (next_shapes).
+     at 4,096 behind a spin kernel (reduce_shapes), and kernel B with its
+     fit epilogue at H_SHAPES and its counts epilogue at F_SHAPES, with the
+     parent's B then H or F on the same state as its parent, and B alone
+     at B_SHAPES (next_shapes).
      kernel_replay_traps: kernel A (every reader, with and without tasks)
      and kernel B against their plain versions on gen/lanes.py
      trap_corpus states at x1, x2, x4 and x8 and random lanes at x8, every
@@ -208,9 +214,11 @@ Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
 rebuild_path, verify_path, resident_path, serving_path, visibility_path)
 runs with every launch count set to 0 just before it and read just after,
-and fails if a kernel of that path was never launched; the shape of every
-launch of kernels C, D, F and H is counted by path (launch_shapes_by_path,
-from _build.launch_shapes). The last lines are the launch counts, the
+and fails if a kernel of that path was never launched, or if it launched
+kernel H or F (FOLDED_KERNELS: the paths take their results from kernel
+B's epilogues); the shape of every launch of kernels C, D, F and H and of
+B with an epilogue is counted by path (launch_shapes_by_path, from
+_build.launch_shapes). The last lines are the launch counts, the
 card's name and power limit, the per-kernel table, and {"ok": true,
 "device": {...}}. Any failed check raises: the script then exits non-zero
 and prints no "ok" line. Without CUDA it exits non-zero at once.
@@ -243,12 +251,20 @@ REPS = 5  # timed runs per kernel, after one warm-up; the median is kept
 PLAIN_REPS = 3  # timed runs of a plain replay, which takes a second or more
 DEVICE = "cuda"
 #: the kernels each driven path must launch (ops/_build.launches keys)
-MAIN_PATH_KERNELS = ("replay", "payload", "crc32", "verify_rows", "stats")
-WIREC_PATH_KERNELS = ("replay_wirec", "payload", "crc32")
+#: (payload_fit and payload_counts: kernel B's launches with its fit or
+#: counts epilogue, which give the paths kernel H's and kernel F's results)
+MAIN_PATH_KERNELS = ("replay", "payload", "payload_counts", "crc32", "verify_rows")
+WIREC_PATH_KERNELS = ("replay_wirec", "payload", "payload_counts", "crc32")
+LADDER_PATH_KERNELS = ("replay_wirec", "payload", "crc32")
 REBUILD_PATH_KERNELS = ("replay_tasks", "payload", "replay")
-VERIFY_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats", "rehome")
-RESIDENT_PATH_KERNELS = ("replay", "payload", "verify_rows", "stats", "rehome", "narrow_ok")
-SERVING_PATH_KERNELS = ("replay", "payload", "rehome", "narrow_ok")
+VERIFY_PATH_KERNELS = ("replay", "payload", "payload_counts", "verify_rows", "rehome")
+RESIDENT_PATH_KERNELS = ("replay", "payload", "payload_fit", "payload_counts", "verify_rows",
+                         "rehome")
+SERVING_PATH_KERNELS = ("replay", "payload", "payload_fit", "rehome")
+#: kernels H (narrow_ok) and F (stats), which no driven path may launch: the
+#: paths take their results from kernel B's epilogues; kernel_narrow_ok and
+#: kernel_stats hold them to their plain versions for their direct callers
+FOLDED_KERNELS = ("narrow_ok", "stats")
 NORTH_STAR_KERNELS = ("replay_gen", "payload", "crc32")
 #: bench.py's parity leg of the north star (the sample's lanes for the
 #: oracle), and the host generator's corpus through kernels A and B
@@ -449,7 +465,7 @@ def flood_batch(h) -> int:
 def resident_cut(h) -> int:
     """resident_path's cut: the first ceil(2/3) of a history's batches, or
     the batches before its flood, so the flood arrives as an append that
-    overflows the pinned state (escalate_resident, kernels G and H)."""
+    overflows the pinned state (escalate_resident: kernel G, B's fit epilogue)."""
     return min(-(-2 * len(h) // 3), flood_batch(h))
 
 
@@ -735,8 +751,8 @@ def task_bytes_ops(events, log):
 
 
 def ptxas_usage(build_log: str, kernel, *more) -> dict:
-    """Registers and spill bytes nvcc reported for the kernel whose mangled
-    name contains `kernel` and each of `more`."""
+    """Registers, stack frame and spill bytes nvcc reported for the kernel
+    whose mangled name contains `kernel` and each of `more`."""
     lines = build_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and all(k in line for k in (kernel,) + more):
@@ -746,6 +762,8 @@ def ptxas_usage(build_log: str, kernel, *more) -> dict:
                     break
                 if "registers" in nxt:
                     out["registers"] = int(nxt.split("Used ")[1].split(" registers")[0])
+                if "stack frame" in nxt:
+                    out["stack_frame_bytes"] = int(nxt.split(" bytes stack frame")[0].split()[-1])
                 if "spill" in nxt:
                     out["spill_store_bytes"] = int(nxt.split(" bytes spill stores")[0]
                                                    .split(",")[-1])
@@ -829,16 +847,18 @@ def decode_ops(profile, rows: int) -> int:
 
 
 #: the kernels whose launches check_launches logs by shape (_build.launch_shapes:
-#: C's and D's rows [W, width], F's error [W], H's output [W])
-SHAPE_KERNELS = ("crc32", "verify_rows", "stats", "narrow_ok")
+#: C's and D's rows [W, width], F's error [W], H's output [W], B's rows
+#: [W, width] where it ran an epilogue)
+SHAPE_KERNELS = ("crc32", "verify_rows", "stats", "narrow_ok", "payload_fit", "payload_counts")
 #: path -> kernel -> "W x width" -> launches, from each path's check_launches
 SHAPES_BY_PATH = {}
 
 
 def check_launches(launches: dict, path: str, kernels, shapes=None) -> None:
-    """Fail unless every kernel of `path` launched in its run; log its
-    launches of SHAPE_KERNELS by shape (`shapes`, or _build.launch_shapes
-    since the run's reset_launches) in SHAPES_BY_PATH."""
+    """Fail unless every kernel of `path` launched in its run and none of
+    FOLDED_KERNELS did; log its launches of SHAPE_KERNELS by shape
+    (`shapes`, or _build.launch_shapes since the run's reset_launches) in
+    SHAPES_BY_PATH."""
     from cadence_tpu_torch.ops import _build
 
     got = {k: {} for k in SHAPE_KERNELS}
@@ -849,6 +869,10 @@ def check_launches(launches: dict, path: str, kernels, shapes=None) -> None:
     for k in kernels:
         if launches[k] == 0:
             fail(f"{path}: kernel {k} was never launched")
+    for k in FOLDED_KERNELS:
+        if launches[k]:
+            fail(f"{path}: kernel {k} was launched {launches[k]} times; the paths take its "
+                 "result from kernel B's epilogue")
 
 
 _INT_OPS_PER_S = []
@@ -1071,7 +1095,7 @@ def resident_path(args, corp, ctx):
                        "fallback": len(res.fallback), "partition_s": engine.last_run["resident"],
                        "events_appended": counter(M.M_RESIDENT_EVENTS_APPENDED) - ev0,
                        "launches": {k: _build.launches[k] - before[k]
-                                    for k in ("replay", "rehome", "narrow_ok")},
+                                    for k in ("replay", "rehome", "payload_fit")},
                        "pool": pool_stats(engine.resident)}
         return res
 
@@ -2124,9 +2148,17 @@ ENTRY = {"replay": "cadence_replay", "replay_tasks": "cadence_replay_tasks",
          "vis_topk_table": "cadence_vis_topk_table", "vis_apply": "cadence_vis_apply",
          "crc32": "cadence_crc32", "verify_rows": "cadence_verify_rows",
          "narrow_ok": "cadence_narrow_ok", "stats": "cadence_stats"}
+#: kernel B's entry point before its epilogues (a parent commit's): its
+#: parameters, and the positions of the port's arguments it takes (all but
+#: out B, fit, counts and the counts scratch)
+PAYLOAD_BEFORE_EPILOGUES = ("const void* ptr_table, void* rows, void* overflow, int64_t W, "
+                            "const int* caps, int b, int kv, const int* out_caps, int out_kv, "
+                            "int width, void* stream")
+PAYLOAD_BEFORE_ARGS = tuple(range(10)) + (14,)
 #: the kernels kernel_launch_shapes times, by the source files that build them
 #: (and kernel A's entry points, replay*.cu)
-SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu", "scan.cu", "crc32.cu", "verify.cu")
+SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu", "scan.cu", "crc32.cu", "verify.cu",
+                 "stats.cu")
 #: the rows kernel C is launched with: feeder_path's 4,096-workflow chunks,
 #: north_star's 16,384 and 131,072 chunks, the main path's bulk (40,960)
 C_SHAPES = (4096, 16384, 40960, 131072)
@@ -2136,14 +2168,18 @@ D_SHAPES = (4096, 40960)
 #: verify_path's alterations: 64 live states of 24,576 (about 11 a 4,096
 #: chunk), half in a payload word and half in the current branch
 D_ALTERED = (64, 24576)
-#: rows kernel H (narrow_ok on a rung-1 state) and kernel F (stats) are
-#: timed at, for the next redesign's ranking: H at serving's 8- and 32-row
-#: flushes, the resident pool's 64-row groups and a 4,096-row chunk; F at
-#: the W its launches have (launch_shapes_by_path): the resident pool's 64,
-#: verify_all's 4,096 chunks and their halves on a mesh of two, the wirec
-#: mesh's 10,240, the main path's 20,480 and 40,960
+#: rows kernel B's fit epilogue (on a rung-1 state) and its counts epilogue
+#: are timed at, where kernels H and F were launched: the fit at serving's
+#: 8- and 32-row flushes, the resident pool's 64-row groups and a 4,096-row
+#: chunk; the counts at the resident pool's 64, verify_all's 4,096 chunks
+#: and their halves on a mesh of two, the wirec mesh's 10,240, the main
+#: path's 20,480 and 40,960
 H_SHAPES = (8, 32, 64, 4096)
 F_SHAPES = (64, 2048, 4096, 10240, 20480, 40960)
+#: rows kernel B is launched with alone: a serving flush's 64, verify_all's
+#: and the feeder's 4,096-row chunks, north_star's 16,384 and 131,072
+#: chunks, the main path's bulk
+B_SHAPES = (64, 4096, 16384, 40960, 131072)
 
 
 def build_entries(csrc: str, sources, subs=()):
@@ -2188,9 +2224,17 @@ def build_entries(csrc: str, sources, subs=()):
         theirs = entry_declarations(src, sources)
         mine = entry_declarations(_build._CSRC, sorted(os.listdir(_build._CSRC)))
         lib.entries = {e for e in ENTRY.values() if e in theirs and theirs[e] == mine.get(e)}
+        # {entry: the positions of the port's arguments it takes}, for an
+        # older entry point that takes fewer
+        lib.adapt = {}
+        if theirs.get(ENTRY["payload"]) == PAYLOAD_BEFORE_EPILOGUES:
+            lib.entries.add(ENTRY["payload"])
+            lib.adapt[ENTRY["payload"]] = PAYLOAD_BEFORE_ARGS
         for entry in lib.entries:
             getattr(lib, entry).restype = ctypes.c_int
-            getattr(lib, entry).argtypes = getattr(port, entry).argtypes
+            types = getattr(port, entry).argtypes
+            getattr(lib, entry).argtypes = [types[i] for i in lib.adapt.get(entry,
+                                                                            range(len(types)))]
         return lib, "\n".join(logs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)  # the loaded library stays mapped
@@ -2212,14 +2256,21 @@ def entry_declarations(csrc: str, sources) -> dict:
 
 def rebind(launch, lib, name: str):
     """The launch `launch` (a port wrapper's, kernel `name`) as a call of
-    `lib`'s entry point with the same arguments, after the launch's `copy`
-    step where it has one (kernel L's packed block). It counts no launch."""
+    `lib`'s entry point with the same arguments (those it takes, where it is
+    an older entry point: lib.adapt), after the launch's `copy` step where
+    it has one (kernel L's packed block). It counts no launch."""
     import torch
 
     from cadence_tpu_torch.ops import _build
 
     fn = getattr(lib, ENTRY[name])
-    c_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in launch.args)
+    args = launch.args
+    taken = getattr(lib, "adapt", {}).get(ENTRY[name])
+    if taken is not None:
+        if any(isinstance(a, torch.Tensor) for i, a in enumerate(args) if i not in taken):
+            fail(f"{name} ({lib._name}): the older entry point has no output for an epilogue")
+        args = [args[i] for i in taken]
+    c_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args)
     copy = getattr(launch, "copy", None)
 
     def go():
@@ -2305,17 +2356,22 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
     parent = dict(variants).get("parent")
     shapes = {}
 
-    def timed(key, name, make, nbytes, ops, check=None):
+    def timed(key, name, make, nbytes, ops, check=None, parent_make=None):
         """Time make()'s launch (and each variant's on its arguments),
         after holding every variant's outputs equal to the port's and the
-        port's to `check`'s, when given."""
+        port's to `check`'s, when given. `parent_make(lib)`, when given,
+        makes the parent's launch and outputs for the same work (the
+        launches the parent made for it, in turn: rebind_all)."""
         want, want_out = make()
         want()
         if check is not None:
             outputs_equal(want_out, check, f"{key}: kernel against its plain version")
-        mine = [(who, lib) for who, lib in variants if ENTRY[name] in lib.entries]
+        mine = [(who, lib) for who, lib in variants
+                if ENTRY[name] in lib.entries or (parent_make and lib is parent)]
 
         def made(lib):
+            if parent_make is not None and lib is parent:
+                return parent_make(lib)
             got, got_out = make()
             return rebind(got, lib, name), got_out
 
@@ -2325,7 +2381,8 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
             outputs_equal(got_out, want_out, f"{key}: {who} against the port")
         other = lambda lib: lambda: made(lib)[0]  # noqa: E731
         runs = {}
-        timed_parent = parent is not None and ENTRY[name] in parent.entries
+        timed_parent = parent is not None and (parent_make is not None
+                                               or ENTRY[name] in parent.entries)
         if timed_parent:
             runs["parent"] = [cuda_ms(launch, setup=other(parent))]
         runs["change"] = [cuda_ms(launch, setup=lambda: make()[0])
@@ -2464,34 +2521,82 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
 
 
 def next_shapes(chunk, bulk, dev, timed) -> None:
-    """Kernels H and F, the next redesigns' candidates, timed (as launched
-    and on the card alone) at H_SHAPES and F_SHAPES: H on the first rows of
-    the chunk's final state widened to rung 1 with rows made unfit on every
-    rule (as kernel_narrow_ok makes them), F on the bulk's error and close
-    status tiled to size; each equal to its plain version."""
+    """Kernel B with its fit and counts epilogues where the paths launch
+    it with them, timed as launched and on the card alone against the
+    parent's launches for the same work (its B, then H or F on the same
+    state): the fit at H_SHAPES on the first rows of the chunk's final
+    state widened to rung 1 with rows made unfit on every rule (as
+    kernel_narrow_ok makes them), the counts at F_SHAPES on the bulk's
+    final state tiled to size; and B alone, its epilogues off, at the rows
+    of B_SHAPES that launch_shapes does not time. Each equal to its plain
+    versions."""
     import torch
 
     from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
     from cadence_tpu_torch.ops import rehome as RH
-    from cadence_tpu_torch.ops.state import narrow_ok_plain, widen_layout
-    from cadence_tpu_torch.ops.stats import stats_launch, stats_plain
+    from cadence_tpu_torch.ops.payload import payload_launch, payload_rows_narrow_plain
+    from cadence_tpu_torch.ops.state import widen_layout
+    from cadence_tpu_torch.ops.stats import stats_launch
+
+    def tiled(n):  # the bulk's final state, its rows repeated to n
+        return RH.rehome(bulk, torch.arange(n, device=dev) % bulk.state.shape[0], L)
 
     L1 = widen_layout(L, 2)
-    past = sum(getattr(L1, f) - getattr(L, f) for f in (
-        "max_activities", "max_timers", "max_children", "max_request_cancels", "max_signals"))
     for n in H_SHAPES:
         h = RH.rehome(chunk, torch.arange(n, device=dev) % chunk.state.shape[0], L1)
         h.activities.occ[::5, L.max_activities + 3] = True
         h.timers.occ[1::7, L.max_timers] = True
         h.vh_count[3::13, L.max_branches] = 1
-        timed(f"narrow_ok {n}", "narrow_ok", lambda h=h: kept(*RH.narrow_ok_launch(h, L)),
-              n * (4 + 4 * L1.max_branches + past + 1), n * (2 * L1.max_branches + past + 2),
-              check=(narrow_ok_plain(h, L),))
+
+        def pair(h=h):  # the parent's work: B, then H on the same state
+            b, rows, ovf = payload_launch(h, L)
+            k, fit = RH.narrow_ok_launch(h, L)
+            return ((b, "payload"), (k, "narrow_ok")), (rows, ovf, fit)
+
+        timed(f"payload fit {n}", "payload", lambda h=h: kept(*payload_launch(h, L, fit=True)),
+              *payload_bytes_ops(n, L, L1, fit=True),
+              check=payload_rows_narrow_plain(h, L, fit=True),
+              parent_make=lambda lib, pair=pair: rebind_all(lib, *pair()))
     for n in F_SHAPES:
-        reps = -(-n // bulk.error.shape[0])
-        err, close = (t.repeat(reps)[:n].clone() for t in (bulk.error, bulk.close_status))
-        timed(f"stats {n}", "stats", lambda err=err, close=close: kept(*stats_launch(err, close)),
-              n * 8 + 16, 4 * n, check=(stats_plain(err, close),))
+        s = tiled(n)
+
+        def pair(s=s):  # the parent's work: B, then F on the same state
+            b, rows, ovf = payload_launch(s, L)
+            f, counts = stats_launch(s.error, s.close_status)
+            return ((b, "payload"), (f, "stats")), (rows, ovf, counts)
+
+        timed(f"payload counts {n}", "payload",
+              lambda s=s: kept(*payload_launch(s, L, counts=True)),
+              *payload_bytes_ops(n, L, counts=True),
+              check=payload_rows_narrow_plain(s, L, counts=True),
+              parent_make=lambda lib, pair=pair: rebind_all(lib, *pair()))
+        del s
+    for n in B_SHAPES:
+        if n in (64, CHUNK_W, bulk.state.shape[0]):
+            continue  # timed by launch_shapes
+        s = tiled(n)
+        timed(f"payload {n}", "payload", lambda s=s: kept(*payload_launch(s, L)),
+              *payload_bytes_ops(n, L), check=payload_rows_narrow_plain(s, L))
+        del s
+        torch.cuda.empty_cache()
+
+
+def in_turn(calls, outputs):
+    """(one call of `calls` in turn, `outputs`): the parent's kernel B and
+    the kernel a path launched after it on the same state, as one timed
+    launch."""
+    def go():
+        for call in calls:
+            call()
+
+    go.keep = (calls, outputs)
+    return go, outputs
+
+
+def rebind_all(lib, calls, outputs):
+    """in_turn of `lib`'s entry points on the port launches `calls`
+    ((launch, kernel name) each)."""
+    return in_turn([rebind(launch, lib, name) for launch, name in calls], outputs)
 
 
 def reduce_shapes(state, dev, timed, reps: int = REPS) -> dict:
@@ -3204,6 +3309,10 @@ def attach_launch_shapes(records, out) -> None:
             rec["launch_shapes_by_path"] = {path: got[rec["name"]]
                                             for path, got in SHAPES_BY_PATH.items()
                                             if got[rec["name"]]}
+        if rec["name"] == "payload":
+            rec["epilogue_launch_shapes_by_path"] = {
+                k: {path: got[k] for path, got in SHAPES_BY_PATH.items() if got[k]}
+                for k in ("payload_fit", "payload_counts")}
         if rec["name"] == "verify_rows":
             rec.update(out["reduce_shapes"])
 
@@ -3277,8 +3386,10 @@ def replay_traps(dev) -> dict:
                 logs_equal(kl, pl, f"replay with tasks {tag} (wire32 {wire32})")
             for out_lay in (lay, DEFAULT_LAYOUT):
                 rk, ok = payload_rows_narrow(got, out_lay)
-                rp, op = payload_rows_narrow_plain(got, out_lay)
-                if max_abs_err(rk, rp) or max_abs_err(ok, op):
+                rp, op, fp, cp = payload_rows_narrow_plain(got, out_lay, fit=True, counts=True)
+                both = payload_rows_narrow(got, out_lay, fit=True, counts=True)
+                if any(max_abs_err(x, y) for x, y in zip((rk, ok) + both,
+                                                         (rp, op, rp, op, fp, cp))):
                     fail(f"payload {tag} to width {out_lay.width}: kernel and plain version "
                          "differ")
                 overflow += int(op.sum())
@@ -3301,15 +3412,24 @@ def replay_traps(dev) -> dict:
     return out
 
 
-def payload_bytes_ops(W: int, L):
-    """Kernel B's bound at W workflows of layout L: the scalars, the
-    current branch's version-history row, each table's occupancy and IDs
-    read once, the rows and flags written once; 3 K^2 compares a table."""
+def payload_bytes_ops(W: int, L, state=None, fit: bool = False, counts: bool = False):
+    """Kernel B's bound at W workflows of a state at layout `state` (L's
+    by default) projected to layout L: the scalars, the current branch's
+    version-history row, each table's occupancy and IDs read once, the
+    rows and flags written once; 3 K^2 compares a table. With `fit`, the
+    other branches' version-history counts read and the fit flags
+    written (its occupancy is read already); with `counts`, the error and
+    close status read and the [2] counts written."""
+    state = state or L
     kv = L.max_version_history_items
-    tables = (L.max_timers, L.max_activities, L.max_children, L.max_signals,
-              L.max_request_cancels)
+    tables = (state.max_timers, state.max_activities, state.max_children, state.max_signals,
+              state.max_request_cancels)
     nbytes = W * (10 * 8 + 4 + 1 + 4 + 4 + 2 * kv * 8 + sum(9 * k for k in tables)
                   + L.width * 8 + 1)
+    if fit:
+        nbytes += W * (4 * (state.max_branches - 1) + 1)
+    if counts:
+        nbytes += W * 8 + 16
     return nbytes, W * sum(3 * k * k for k in tables)
 
 
@@ -3796,9 +3916,21 @@ def main() -> int:
     wk, wo = payload_rows_narrow(wide, DEFAULT_LAYOUT)
     wp, wpo = payload_rows_narrow_plain(wide, DEFAULT_LAYOUT)
     err_b = max(err_b, max_abs_err(wk, wp), max_abs_err(wo, wpo), max_abs_err(wk, rows_p))
+    # its epilogues: the counts on the final state, the fit on the widened
+    # one (kernel_narrow_ok holds the fit on unfit rows too)
+    err_b = max(err_b, *(max_abs_err(x, y) for x, y in zip(
+        payload_rows_narrow(s_k, DEFAULT_LAYOUT, fit=True, counts=True),
+        payload_rows_narrow_plain(s_k, DEFAULT_LAYOUT, fit=True, counts=True))))
+    err_b = max(err_b, *(max_abs_err(x, y) for x, y in zip(
+        payload_rows_narrow(wide, DEFAULT_LAYOUT, fit=True, counts=True),
+        payload_rows_narrow_plain(wide, DEFAULT_LAYOUT, fit=True, counts=True))))
     if err_b:
         fail(f"payload kernel differs from its plain version (max abs err {err_b})")
     ms_b = cuda_ms(launch, setup=lambda: payload_launch(s_k, DEFAULT_LAYOUT)[0], inner=20)
+    ms_b_counts = cuda_ms(launch, inner=20,
+                          setup=lambda: payload_launch(s_k, DEFAULT_LAYOUT, counts=True)[0])
+    ms_b_both = cuda_ms(launch, inner=20, setup=lambda: payload_launch(
+        s_k, DEFAULT_LAYOUT, fit=True, counts=True)[0])
     ms_bp = cuda_ms(lambda _: payload_rows_narrow_plain(s_k, DEFAULT_LAYOUT))
     masked = [torch.where(t.occ, ids, torch.full_like(ids, 1 << 62)) for t, ids in (
         (s_k.timers, s_k.timers.started_id), (s_k.activities, s_k.activities.schedule_id),
@@ -3809,8 +3941,13 @@ def main() -> int:
     records.append(kernel_record(
         "payload", "cadence_tpu_torch/csrc/payload.cu", "cadence_tpu/ops/payload.py:36",
         None, err_b, ms_b, ms_bp, *payload_bytes_ops(W, L),
-        yardstick="torch.sort of the five masked ID tables", yardstick_ms=ms_sort))
-    emit("kernel_payload", max_abs_err=err_b, ms=ms_b, plain_ms=ms_bp, torch_sort_ms=ms_sort)
+        yardstick="torch.sort of the five masked ID tables", yardstick_ms=ms_sort,
+        ms_with_counts=ms_b_counts, ms_with_fit_and_counts=ms_b_both,
+        ptxas=ptxas_usage(_build.build_log, "payload_kernel"),
+        also_replaces=["cadence_tpu/ops/state.py:305 (fit epilogue)",
+                       "cadence_tpu/parallel/mesh.py:104 (counts epilogue)"]))
+    emit("kernel_payload", max_abs_err=err_b, ms=ms_b, plain_ms=ms_bp, torch_sort_ms=ms_sort,
+         ms_with_counts=ms_b_counts, ms_with_fit_and_counts=ms_b_both)
 
     # C: CRC32 against the plain version and zlib
     c_k = crc32_rows(rows_k)
@@ -3856,7 +3993,8 @@ def main() -> int:
     error_t, close_t = s_k.error, s_k.close_status
     f_k = stats(error_t, close_t)
     f_p = stats_plain(error_t, close_t)
-    err_f = max_abs_err(f_k, f_p)
+    err_f = max(max_abs_err(f_k, f_p),
+                max_abs_err(payload_rows_narrow(s_k, DEFAULT_LAYOUT, counts=True)[2], f_p))
     if err_f or int(f_p[1]) == 0:
         fail(f"stats kernel differs from its plain version ({f_k.tolist()} against {f_p.tolist()})")
     ms_f = cuda_ms(launch, setup=lambda: stats_launch(error_t, close_t)[0], inner=20)
@@ -3866,7 +4004,8 @@ def main() -> int:
     records.append(kernel_record(
         "stats", "cadence_tpu_torch/csrc/stats.cu", "cadence_tpu/parallel/mesh.py:104",
         None, err_f, ms_f, ms_fp, W * 8 + 16, 4 * W, library_ms=ms_fl,
-        library="torch.count_nonzero of each tensor"))
+        library="torch.count_nonzero of each tensor",
+        paths_take_it_from="kernel B's counts epilogue (launches: payload_counts)"))
     emit("kernel_stats", max_abs_err=err_f, counts=f_k.tolist(), ms=ms_f, plain_ms=ms_fp,
          count_nonzero_ms=ms_fl)
     # G: re-homing state rows at the resident pool's widths: a 4,096-row
@@ -3919,7 +4058,8 @@ def main() -> int:
     h_s.current_branch[5::19] = L.max_branches
     h_k = RH.narrow_ok(h_s, DEFAULT_LAYOUT)
     h_p = narrow_ok_plain(h_s, DEFAULT_LAYOUT)
-    err_h = max_abs_err(h_k, h_p)
+    err_h = max(max_abs_err(h_k, h_p),
+                max_abs_err(payload_rows_narrow(h_s, DEFAULT_LAYOUT, fit=True)[2], h_p))
     if err_h or h_p.all() or not h_p.any():
         fail(f"narrow_ok kernel differs from its plain version ({err_h} rows)")
     ms_h = cuda_ms(launch, setup=lambda: RH.narrow_ok_launch(h_s, DEFAULT_LAYOUT)[0], inner=20)
@@ -3930,7 +4070,8 @@ def main() -> int:
     records.append(kernel_record(
         "narrow_ok", "cadence_tpu_torch/csrc/rehome.cu", "cadence_tpu/ops/state.py:305",
         None, err_h, ms_h, ms_hp, h_bytes, n_g * (2 * L1.max_branches + past + 2),
-        rows=n_g, fit=int(h_p.sum())))
+        rows=n_g, fit=int(h_p.sum()),
+        paths_take_it_from="kernel B's fit epilogue (launches: payload_fit)"))
     emit("kernel_narrow_ok", max_abs_err=err_h, rows=n_g, fit=int(h_p.sum()), ms=ms_h,
          plain_ms=ms_hp)
     del got_g, w_k, h_s
@@ -4126,7 +4267,7 @@ def main() -> int:
         final[i] = oracle_crc(i)
     t3 = time.perf_counter()
     ladder_launches = dict(_build.launches)
-    check_launches(ladder_launches, "fallback_ladder", WIREC_PATH_KERNELS)
+    check_launches(ladder_launches, "fallback_ladder", LADDER_PATH_KERNELS)
     rungs, counters = list(ladder.last_run), lreg.snapshot()
     if not len(cap):
         fail("fallback_ladder: no capacity-flagged row")
@@ -4248,6 +4389,9 @@ def main() -> int:
              "serving_path": serving_launches, "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
+        if rec["name"] == "payload":
+            rec["epilogue_launches"] = {e: sum(p[e] for p in paths.values())
+                                        for e in ("payload_fit", "payload_counts")}
     emit("launch_shapes_by_path", **SHAPES_BY_PATH)
     print(json.dumps({"launches": paths}))
     print(smi)

@@ -13,12 +13,14 @@ from cadence_tpu.ops import encode as j_encode
 from cadence_tpu.ops.crc import crc32_rows as j_crc32_rows
 from cadence_tpu.ops.payload import payload_rows_narrow as j_narrow
 from cadence_tpu.ops.replay import replay_events as j_replay_events
+from cadence_tpu.ops.state import narrow_ok as j_narrow_ok
 from cadence_tpu.ops.state import widen_layout
 from cadence_tpu_torch.gen.lanes import random_lanes
 from cadence_tpu_torch.ops.convert import state_from_numpy
 from cadence_tpu_torch.ops.crc import crc32_rows
 from cadence_tpu_torch.ops.payload import payload_rows, payload_rows_narrow
-from cadence_tpu_torch.ops.state import widen_state
+from cadence_tpu_torch.ops.state import narrow_ok_plain, widen_state
+from cadence_tpu_torch.ops.stats import stats_plain
 from tests.torch_parity import jax_state_to_numpy, pad_events
 
 
@@ -43,6 +45,17 @@ def test_payload_rows_narrow(kind, factor):
     assert rows.dtype == torch.int64 and rows.shape == (64, DEFAULT_LAYOUT.width)
     assert np.array_equal(rows.numpy(), want_rows)
     assert np.array_equal(ovf.numpy(), want_ovf)
+    # the epilogues' outputs: narrow_ok_plain's and stats_plain's, which
+    # are the JAX package's narrow_ok and per-shard stats expression
+    rows2, ovf2, fit, counts = payload_rows_narrow(s, DEFAULT_LAYOUT, fit=True, counts=True)
+    assert torch.equal(rows2, rows) and torch.equal(ovf2, ovf)
+    assert torch.equal(fit, narrow_ok_plain(s, DEFAULT_LAYOUT))
+    assert torch.equal(counts, stats_plain(s.error, s.close_status))
+    assert np.array_equal(fit.numpy(), np.asarray(j_narrow_ok(js, DEFAULT_LAYOUT)))
+    assert counts.tolist() == [int((np.asarray(js.error) != 0).sum()),
+                               int((np.asarray(js.close_status) != 0).sum())]
+    assert payload_rows_narrow(s, DEFAULT_LAYOUT, fit=True)[2].tolist() == fit.tolist()
+    assert torch.equal(payload_rows_narrow(s, DEFAULT_LAYOUT, counts=True)[2], counts)
     if factor == 1:
         assert np.array_equal(payload_rows(s).numpy(), want_rows)
     if kind == "lanes" and factor == 2:

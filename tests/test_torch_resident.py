@@ -4,9 +4,12 @@ package generating them with its own gen/corpus.py from the same seed):
 every AppendResult and AppendReport field, the keys each cache holds in
 LRU order, the counters, and each pinned state (`state_of(entry)` against
 JAX's `entry.state`, field by field), exactly. The cases are the
-non-Onebox ones of tests/test_resident.py, plus three of the port's own:
+non-Onebox ones of tests/test_resident.py, plus four of the port's own:
 a flagged row escalating after a same-call eviction, a batched admit under
-a budget smaller than the batch, and a mesh of two CPU slices."""
+a budget smaller than the batch, a mesh of two CPU slices, and an append
+the ladder resolves at rung 2 (re-narrowed or not by kernel B's fit)."""
+import random
+
 import jax
 import numpy as np
 import pytest
@@ -247,6 +250,8 @@ def test_replay_append_parity_and_readdress():
 
 
 def test_overflowing_append_widens_and_renarrows():
+    """The rung-1 append re-narrows exactly the row the JAX pool does: the
+    fit flag comes from kernel B's fit epilogue on the appended state."""
     jc, tc = caches()
     chain = {pkg: overflow_chain(pkg) for pkg in PACKAGES}
     key = ("d", "ovf", "r")
@@ -254,10 +259,72 @@ def test_overflowing_append_widens_and_renarrows():
     res = append_both(jc, tc, [key], {pkg: [c[1]] for pkg, c in chain.items()})[0]
     assert res.ok and res.escalated and res.rung == 1
     assert tc.entry_for(key).rung == 1 and tc.stats()["widened_entries"] == 1
+    assert_same(jc, tc)
     res = append_both(jc, tc, [key], {pkg: [c[2]] for pkg, c in chain.items()})[0]
     assert res.ok and res.rung == 0 and tc.entry_for(key).rung == 0
     assert tc.metrics.counter(m.SCOPE_TPU_RESIDENT, m.M_RESIDENT_NARROWED) == 1
     assert np.array_equal(res.payload, oracle_row("cadence_tpu_torch", chain["cadence_tpu_torch"][2]))
+    assert_same(jc, tc)
+
+
+def flood_chain(pkg, flood: int, keep: int):
+    """(prefix, full history) in package pkg: the prefix pins 2
+    activities; the append schedules `flood` more (slots 2 on) and
+    completes all of them but the last `keep`, so its replay needs the
+    ladder's rung 2 (64 slots) while its final state holds 2 + keep."""
+    gen = package(pkg, "gen.corpus")
+    ET = package(pkg, "core.enums").EventType
+    w = gen.HistoryWriter(workflow_id="flood")
+    gen._start(w, random.Random(0))
+    cyc = gen._run_decision(w, 2)
+    gen._begin_decision_completed_batch(w, cyc)
+
+    def schedule(prefix, n):
+        return [w.add(ET.ActivityTaskScheduled, activity_id=f"{prefix}{i}", task_list="res-tl",
+                      schedule_to_start_timeout_seconds=60,
+                      schedule_to_close_timeout_seconds=120,
+                      start_to_close_timeout_seconds=60, heartbeat_timeout_seconds=0)
+                for i in range(n)]
+
+    schedule("p", 2)
+    sched = gen._schedule_decision(w, in_batch=True)
+    w.end_batch()
+    prefix = list(w.batches)
+    cyc = gen._run_decision(w, sched)
+    gen._begin_decision_completed_batch(w, cyc)
+    acts = schedule("f", flood)
+    gen._schedule_decision(w, in_batch=True)
+    w.end_batch()
+    for ev in acts[:flood - keep]:
+        started = w.single(ET.ActivityTaskStarted, scheduled_event_id=ev.id,
+                           request_id=f"poll-{ev.id}")
+        w.begin_batch()
+        w.add(ET.ActivityTaskCompleted, scheduled_event_id=ev.id, started_event_id=started.id)
+        w.end_batch()
+    return prefix, list(w.batches)
+
+
+@pytest.mark.parametrize("keep,rung", [(0, 0), (3, 2)])
+def test_escalate_resident_rung2_fit_equals_jax(keep, rung):
+    """An append that overflows rungs 0 and 1 and resolves at rung 2: with
+    every flooded activity completed its final state fits the base layout
+    and is re-admitted narrowed; with the last 3 left open (5 entries, 3 in
+    slots past 16) it overflows nothing and does not fit, and stays at rung
+    2. The fit comes from kernel B's fit epilogue in escalate_resident;
+    results, entries and counters equal the JAX pool's."""
+    jc, tc = caches()
+    chain = {pkg: flood_chain(pkg, 40, keep) for pkg in PACKAGES}
+    key = ("d", "flood", "r")
+    seed_both(jc, tc, [key], {pkg: [c[0]] for pkg, c in chain.items()})
+    res = append_both(jc, tc, [key], {pkg: [c[1]] for pkg, c in chain.items()})[0]
+    assert res.ok and res.escalated and res.rung == rung
+    assert [r["rung"] for r in tc.ladder.last_run] == [1, 2]
+    assert tc.entry_for(key).rung == rung
+    assert (tc.metrics.counter(m.SCOPE_TPU_RESIDENT, m.M_RESIDENT_NARROWED)
+            == (1 if rung == 0 else 0))
+    assert np.array_equal(res.payload,
+                          oracle_row("cadence_tpu_torch", chain["cadence_tpu_torch"][1]))
+    assert_same(jc, tc)
 
 
 def test_no_ladder_falls_back_cleanly():

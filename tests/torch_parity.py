@@ -244,6 +244,7 @@ struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 blockIdx, threadIdx;
 inline uint3 blockDim;
 struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct longlong2 { long long x, y; };
 inline longlong2 make_longlong2(long long a, long long b) { return {a, b}; }
@@ -263,6 +264,12 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
   *p += v;
   return old;
 }
+inline unsigned long long atomicExch(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p = v;
+  return old;
+}
+inline void __threadfence() {}
 inline double __longlong_as_double(long long x) { double d; std::memcpy(&d, &x, 8); return d; }
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;
