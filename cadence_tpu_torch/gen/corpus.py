@@ -539,8 +539,16 @@ def generate_history(suite: str, seed: int, workflow_index: int = 0,
                      target_events: int = 100) -> List[HistoryBatch]:
     """Generate one workflow's batched history for a suite.
 
-    The compositional fuzzer's `"fuzz"` suites are not part of this
-    package yet; they raise KeyError like any unknown suite."""
+    `"fuzz"` / `"fuzz:<profile>"` route to the compositional fuzzer
+    (gen/fuzz.py) — the whole decision surface behind the same
+    `(suite, seed, workflow_index)` addressing every consumer (tests,
+    promoted CorpusSpecs) already speaks."""
+    if suite == "fuzz" or suite.startswith("fuzz:"):
+        from .fuzz import generate_fuzz_history
+        profile = suite.partition(":")[2] or "mixed"
+        return generate_fuzz_history(seed, workflow_index,
+                                     target_events=target_events,
+                                     profile=profile)
     # string seeding is stable across processes (random.seed version 2 hashes
     # the string with sha512), unlike tuple __hash__ under PYTHONHASHSEED
     rng = random.Random(f"{seed}:{suite}:{workflow_index}")

@@ -3,7 +3,8 @@ part of the JAX package's utils/metrics.py that the port's device layers
 write to (the escalation ladder, the native wirec dispatcher, the bulk
 executor, the device rebuilder, the replay engine, the pack cache, the
 resident pool, the serving scheduler, the snapshot tier, the device
-visibility view and the replay profiler), under the same scope and metric names.
+visibility view, the replay profiler, shard migration and the replication
+pump), under the same scope and metric names.
 
 Histograms are fixed-bucket (prometheus `le` semantics) with interpolated
 percentiles, as in the JAX package; the Prometheus text exposition of the
@@ -51,6 +52,16 @@ SCOPE_TPU_NATIVE = "tpu.native"
 #: ops/scan.py): List/Scan/Count served as vectorized mask kernels over
 #: device-resident columns; counters below under M_VIS_*
 SCOPE_TPU_VISIBILITY = "tpu.visibility"
+#: the standby's replication pump (engine/replication.py
+#: ReplicationTaskProcessor): applied, deduped, resent and quarantined
+#: tasks, the device standby apply, shipped snapshots and the per-domain
+#: backpressure; counters below under M_REPL_*
+SCOPE_REPLICATION = "replication.task-processor"
+#: live HBM state migration across the host cluster (engine/migration.py
+#: MigrationManager): shard movement snapshots resident rows out of the
+#: losing host and hydrates them on the gaining host; counters below
+#: under M_MIG_*
+SCOPE_TPU_MIGRATION = "tpu.migration"
 
 M_LATENCY = "latency"
 M_KERNEL_LAUNCHES = "kernel-launches"
@@ -128,6 +139,77 @@ M_SNAP_IGNORED_STALE = "ignored-stale"
 M_SNAP_IGNORED_TORN = "ignored-torn"
 M_SNAP_BYTES = "snapshot-bytes"
 M_SNAP_ENTRIES = "snapshot-entries"
+M_REPL_APPLIED = "replication-applied"
+M_REPL_DEDUPED = "replication-deduped"
+M_REPL_RESENT = "replication-resends"
+M_REPL_DLQ = "replication-dlq"
+#: replication DLQ depth gauge: current quarantined-entry count on the
+#: target store (maintained at every enqueue/redrive/purge touch point)
+M_REPL_DLQ_DEPTH = "dlq-depth"
+#: DLQ redrive: entries re-applied through the resender by
+#: ReplicationTaskProcessor.redrive_dlq
+M_REPL_REDRIVEN = "replication-redriven"
+#: device standby apply (engine/replication.py _DeviceApplier): applied
+#: histories streamed through the resident tier at the bulk-ingest rate,
+#: host-parity gated per apply — divergence counted, never served
+M_REPL_DEVICE_APPLIED = "device-applied"
+M_REPL_DEVICE_SUFFIX_EVENTS = "device-suffix-events"
+M_REPL_DEVICE_COLD = "device-skipped-cold"
+M_REPL_DEVICE_STALE = "device-skipped-stale"
+M_REPL_DEVICE_DIVERGENCE = "device-parity-divergence"
+M_REPL_DEVICE_UNSTABLE = "device-parity-skipped-unstable"
+#: snapshot-shipping replication: checksum-gated SnapshotRecords riding
+#: the replication stream so a standby's cold admits are seed_caches +
+#: suffix replay, never full replay
+M_REPL_SNAP_SHIPPED = "snapshots-shipped"
+M_REPL_SNAP_INSTALLED = "snapshots-installed"
+M_REPL_SNAP_IGNORED_TORN = "snapshots-ignored-torn"
+M_REPL_SNAP_IGNORED_STALE = "snapshots-ignored-stale"
+M_REPL_SNAP_IGNORED_FOREIGN = "snapshots-ignored-foreign"
+#: per-domain replication backpressure: a drain pass stops (typed
+#: ReplicationBackpressureShed) once one domain has consumed its per-pass
+#: apply budget; -deferred counts the tasks the shed pass left for the
+#: next pass
+M_REPL_BP_SHED = "backpressure-shed"
+M_REPL_BP_DEFERRED = "backpressure-deferred"
+#: live HBM state migration (SCOPE_TPU_MIGRATION): on shard RELEASE the
+#: losing host writes checksum-gated snapshot records for its moving
+#: resident rows (`migrated-out`; gate-refused writes count
+#: `migrate-out-skipped`) and drops the local entries (`evicted-resident`);
+#: on shard ACQUIRE the gaining host hydrates the stolen shards' open
+#: workflows from the shared snapshot store — `migrated-in` counts
+#: snapshot-hydrated admits (suffix catch-up events under
+#: `suffix-events`), `cold-steals` keys with no usable record,
+#: `stale-snapshots` records whose address no longer prefixes the stored
+#: bytes. `parity-divergence` counts hydrated rows whose payload disagreed
+#: with the oracle's live state over a STABLE store (dropped, never
+#: served); `parity-skipped-unstable` counts comparisons skipped because a
+#: foreign commit moved the tail mid-hydration (not divergence).
+M_MIG_OUT = "migrated-out"
+M_MIG_OUT_SKIPPED = "migrate-out-skipped"
+M_MIG_EVICTED = "evicted-resident"
+M_MIG_IN = "migrated-in"
+M_MIG_COLD = "cold-steals"
+#: record-less keys at/under the young floor (migration.YOUNG_BATCHES):
+#: expected-cold per the snapshot policy's own min_events floor, kept out
+#: of the warm-failover ratio
+M_MIG_YOUNG = "young-steals"
+M_MIG_STALE = "stale-snapshots"
+M_MIG_SUFFIX_EVENTS = "suffix-events"
+M_MIG_DIVERGENCE = "parity-divergence"
+M_MIG_UNSTABLE = "parity-skipped-unstable"
+#: the counters a serving host pre-registers at 0, so that "no divergence"
+#: and "series missing" scrape apart (the JAX package's rpc/server.py
+#: ServiceHost registers the same names)
+MIGRATION_COUNTERS = (M_MIG_OUT, M_MIG_OUT_SKIPPED, M_MIG_EVICTED, M_MIG_IN, M_MIG_COLD,
+                      M_MIG_YOUNG, M_MIG_STALE, M_MIG_SUFFIX_EVENTS, M_MIG_DIVERGENCE,
+                      M_MIG_UNSTABLE)
+REPLICATION_COUNTERS = (M_REPL_APPLIED, M_REPL_DEDUPED, M_REPL_RESENT, M_REPL_DLQ,
+                        M_REPL_REDRIVEN, M_REPL_DEVICE_APPLIED, M_REPL_DEVICE_SUFFIX_EVENTS,
+                        M_REPL_DEVICE_COLD, M_REPL_DEVICE_STALE, M_REPL_DEVICE_DIVERGENCE,
+                        M_REPL_DEVICE_UNSTABLE, M_REPL_SNAP_SHIPPED, M_REPL_SNAP_INSTALLED,
+                        M_REPL_SNAP_IGNORED_TORN, M_REPL_SNAP_IGNORED_STALE,
+                        M_REPL_SNAP_IGNORED_FOREIGN, M_REPL_BP_SHED, M_REPL_BP_DEFERRED)
 M_NATIVE_AVAILABLE = "available"
 M_NATIVE_PACKS = "native-packs"
 M_NATIVE_PY_PACKS = "python-packs"
@@ -167,6 +249,23 @@ M_VIS_SCAN_LATENCY = "scan-latency"
 #: the least-queried resident column and took its slot — queries on it
 #: stop permanently falling back (visibility_device._maybe_replace_attr)
 M_VIS_ATTR_REPLACEMENTS = "attr-column-replacements"
+
+
+def preregister_migration(registry: "MetricsRegistry") -> None:
+    """MIGRATION_COUNTERS at 0 under SCOPE_TPU_MIGRATION, as a serving host
+    registers them when it wires its MigrationManager."""
+    for metric in MIGRATION_COUNTERS:
+        registry.inc(SCOPE_TPU_MIGRATION, metric, 0)
+
+
+def preregister_replication(registry: "MetricsRegistry") -> None:
+    """REPLICATION_COUNTERS at 0 and the DLQ depth gauge at 0 under
+    SCOPE_REPLICATION, as a host registers them when it wires its
+    replication pump (the JAX package's list also holds the
+    domain-replication counters, whose module the port does not have)."""
+    for metric in REPLICATION_COUNTERS:
+        registry.inc(SCOPE_REPLICATION, metric, 0)
+    registry.gauge(SCOPE_REPLICATION, M_REPL_DLQ_DEPTH, 0.0)
 
 
 def ladder_rung_rows(rung: int) -> str:

@@ -8,6 +8,8 @@
                                      # kernel_launch_shapes and kernel_replay_traps
     python3 chip_smoke.py --visibility-only  # the build, kernel_vis, vis_staging
                                      # and visibility_path
+    python3 chip_smoke.py --new-phases-only  # their corpora, the build, fuzz_parity,
+                                     # migration_path and replication_apply
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
                                      # checkout's kernels A, B, C, D, G, H, I, J,
                                      # K, L and A's generator reader (and
@@ -86,7 +88,7 @@ Phases, one JSON line each:
      and at 131,072 x 1,000 (the north star's chunks); each beside its
      bound and the launch floor (a one-element add_ timed the same way), as
      the host launches it and (device_ms) behind a queued spin kernel, the
-     card's time alone; kernel J over visibility_path's 2^21-row view
+     card's time alone; kernel J over visibility_path's 2^20-row view
      (its write burst's three Count plans, and bench.py's six queries as
      bitmaps) and kernel L through the view's own feed (the packed block's
      copy and the launch) at its drains' shapes (a 64-row bucket holding
@@ -199,7 +201,7 @@ Phases, one JSON line each:
      negative index) through L, each equal to its plain version (tolerance
      0) and timed beside its bound.
  11. visibility_path: Stores().visibility with CADENCE_TPU_VISIBILITY=1 on
-     the card over bench.py's population at 1,048,576 records and a `ties`
+     the card over bench.py's population at 524,288 records and a `ties`
      domain of 4,096 records on 16 start times: with parity on, the six
      queries as Count and List, a page walk of the ties domain at 100 a
      page (every page escalates) and a string-ordering query that must
@@ -210,9 +212,45 @@ Phases, one JSON line each:
      every J, K and L launch of the run (launch_shapes). With --parent, the
      parent's J (count and bitmap), K (k = 1, 101, 128, 4,096) and L are
      held equal and timed beside this tree's in kernel_vis.
+  9b. fuzz_parity: (a) gen/fuzz.parity_run(device="cuda") at its defaults
+     (50 seeds x 4 workflows, target_events 100, 2 NDC forks a seed pair):
+     dense replay_corpus against the oracle, wirec replay_wirec_to_crc
+     against the oracle's CRCs, TPUReplayEngine.verify_all over the
+     store-seeded histories and replay_tree_payloads over 50 NDC branch
+     trees; ok, 0 of every divergence, and its workflow, event, event-kind,
+     fork and decision-coverage counts equal to the run of record
+     (FUZZ_RUN, FUZZ_DECISIONS). (b) each of the seven `fuzz:<profile>`
+     suites x 4,096 workflows (seed 20260730, target_events 120, made in
+     the generation pool) through replay_corpus and, packed as wirec,
+     replay_wirec_to_crc: 0 errors, the wirec CRCs equal to the int64
+     path's, 256 sampled workflows a profile equal to the oracle; each
+     path's events/s.
+  9c. migration_path: Stores holding 4,096 workflows of the five suites
+     (every 16th whole, so closed; the rest cut after ceil(2/3) of their
+     batches); host 1's TPUReplayEngine warmed through verify_all, then
+     MigrationManager.migrate_out of 4 of 8 shards (snapshots through the
+     shared store, the moved entries evicted); 1-3 batches appended to
+     half of the moved open keys; MigrationManager.hydrate_shards on host
+     2's engine: every open moved key hydrated (none cold, stale or
+     divergent), the closed ones skipped, each hydrated resident row equal
+     to the oracle's payload_row byte for byte, only the appended events
+     replayed. Prints the hydrate wall and workflows/s.
+  9d. replication_apply: an active Stores whose ReplicationPublisher
+     publishes every batch of 4,096 open workflows of the five suites
+     (target_events 40), and a standby Stores behind a
+     ReplicationTaskProcessor with the port's engine (tpu=...): the first
+     half of each history drains (every key counted cold on the device),
+     verify_all warms the standby's pool, the active's snapshotter ships
+     256 keys' records (publish_snapshot), the rest drains: the shipped
+     records install and every key finishes on the device as a suffix
+     (kernels G, A from the carried state, B), its resident row equal to
+     the oracle's; the standby's histories and states equal the active's.
+     The same drain over 512 of the workflows with
+     CADENCE_TPU_REPL_DEVICE=0 launches no kernel.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
-rebuild_path, verify_path, resident_path, serving_path, visibility_path)
+rebuild_path, verify_path, resident_path, serving_path, fuzz_parity's two
+legs, migration_path, replication_apply, visibility_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched, or if it launched
 kernel H or F (FOLDED_KERNELS: the paths take their results from kernel
@@ -311,9 +349,11 @@ SERVING_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "overflow")
 #: serving_path's submitter threads
 SERVING_THREADS = 8
 #: kernel_vis: rows of the columnar table (the view's capacity at 16M
-#: records), and visibility_path: bench.py's population size and seed
+#: records), and visibility_path: its population size (bench.py's 1M cut
+#: to half, the first depth the script's time limit gives up when a phase
+#: is added) and seed
 VIS_ROWS = 1 << 24
-VIS_RECORDS = 1 << 20
+VIS_RECORDS = 1 << 19
 VIS_SEED = 20260804
 #: kernels J, K and L, which visibility_path must launch
 VISIBILITY_PATH_KERNELS = ("vis_mask", "vis_topk", "vis_apply")
@@ -327,6 +367,45 @@ TOPK_TIMED = ("half_open", "and_or_12")
 TOPK_FUNCTIONS = ("topk_scan_kernel", "topk_hist_kernel", "topk_compact_kernel",
                   "topk_sort_kernel", "vis_keys_kernel", "bitonic_tile_kernel",
                   "bitonic_global_kernel")
+
+
+#: fuzz_parity (a): parity_run at its defaults (seeds 50, 4 workflows a
+#: seed, target_events 100, 2 NDC forks a seed pair) and the figures the
+#: grammar gives for it (FUZZ_r01.json, the run of record)
+FUZZ_RUN = {"workflows": 200, "events": 17942, "event_kinds": 42, "ndc_forked": 50}
+FUZZ_DECISIONS = {
+    "ScheduleActivityTask": 877, "RequestCancelActivityTask": 224, "StartTimer": 723,
+    "CompleteWorkflowExecution": 47, "FailWorkflowExecution": 19, "CancelTimer": 264,
+    "CancelWorkflowExecution": 95, "RequestCancelExternalWorkflowExecution": 226,
+    "RecordMarker": 296, "ContinueAsNewWorkflowExecution": 23,
+    "StartChildWorkflowExecution": 542, "SignalExternalWorkflowExecution": 287,
+    "UpsertWorkflowSearchAttributes": 203}
+#: parity_run's kernels: A's int64 reader (dense replay, verify_all, the NDC
+#: tree replay) and wirec reader, B (verify_all with its counts), C, D, G
+FUZZ_PARITY_KERNELS = ("replay", "replay_wirec", "payload", "payload_counts", "crc32",
+                       "verify_rows", "rehome")
+#: fuzz_parity (b): each profile (`fuzz:<profile>`) x FUZZ_PER_PROFILE at
+#: the main path's seed and target_events, 256 sampled a profile
+FUZZ_PER_PROFILE = 4096
+FUZZ_SCALE_KERNELS = ("replay", "payload", "crc32", "replay_wirec")
+#: migration_path: MIG_WORKFLOWS of the five suites over the reference
+#: Onebox's 8 history shards, half of them moved; every 16th workflow is
+#: stored closed, the rest cut after ceil(2/3) of their batches
+MIG_WORKFLOWS = 4096
+MIG_SHARDS = 8
+#: the hydration's grouped from-state launches: G's gather, A from the
+#: carried states, B
+MIGRATION_PATH_KERNELS = ("replay", "payload", "rehome")
+#: replication_apply: REPL_WORKFLOWS of the five suites at REPL_EVENTS a
+#: history (depth cut from 120: each batch is a replication task the host
+#: replicator applies one by one), their last batch held back so they stay
+#: open; REPL_SHIPPED of them reach the standby's pool through shipped
+#: snapshots; the kill-switch leg drains REPL_KILL_SWITCH of them
+REPL_WORKFLOWS = 4096
+REPL_EVENTS = 40
+REPL_SHIPPED = 256
+REPL_KILL_SWITCH = 512
+REPLICATION_APPLY_KERNELS = ("replay", "payload", "rehome")
 
 
 _T0 = time.perf_counter()
@@ -537,6 +616,77 @@ def _gen_chains(task):
     return lanes, oracle
 
 
+def _gen_fuzz(task):
+    """fuzz_parity (b)'s corpus: one profile's workflows through
+    generate_history("fuzz:<profile>") → (histories, their unpadded lanes
+    (encode_batches_resumable), {index: oracle row following the
+    continue-as-new chain})."""
+    from cadence_tpu_torch.gen.corpus import generate_history
+    from cadence_tpu_torch.ops.encode import encode_batches_resumable
+
+    profile, start, count, sample = task
+    hs = [generate_history(f"fuzz:{profile}", SEED, i, TARGET_EVENTS)
+          for i in range(start, start + count)]
+    return (hs, [encode_batches_resumable(h)[0] for h in hs],
+            {i: _oracle_row(hs[i - start]) for i in sample})
+
+
+def _gen_migration(task):
+    """migration_path's workflows: (store-shaped history up to its append,
+    batches stored before the move, the oracle's MutableState there, its
+    MutableState after the appended batches or None). Every 16th workflow
+    is stored whole (closed); the others are cut after ceil(2/3) of their
+    batches, and 1-3 more batches wait to be appended after the move."""
+    import copy
+
+    from cadence_tpu_torch.gen.corpus import SUITES, generate_history
+    from cadence_tpu_torch.gen.fuzz import strip_new_run_events
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    start, count = task
+    out = []
+    for g in range(start, start + count):
+        h = strip_new_run_events([generate_history(SUITES[g % len(SUITES)], SEED + 7, g,
+                                                   TARGET_EVENTS)])[0]
+        if g % 16 == 0:
+            cut, k = len(h), 0
+        else:
+            cut = -(-2 * len(h) // 3)
+            k = max(0, min(1 + g % 3, len(h) - 1 - cut))
+        sb = StateBuilder()
+        sb.replay_history(h[:cut])
+        at_cut = copy.deepcopy(sb.ms)
+        for b in h[cut:cut + k]:
+            sb.apply_batch(b)
+        out.append((h[:cut + k], cut, at_cut, sb.ms if k > 0 else None))
+    return out
+
+
+def _gen_replication(task):
+    """replication_apply's workflows: (store-shaped history without its
+    last batch, so the run stays open; the first half's batch count; the
+    oracle's MutableState after the first half and at the end)."""
+    import copy
+
+    from cadence_tpu_torch.gen.corpus import SUITES, generate_history
+    from cadence_tpu_torch.gen.fuzz import strip_new_run_events
+    from cadence_tpu_torch.oracle.state_builder import StateBuilder
+
+    start, count = task
+    out = []
+    for g in range(start, start + count):
+        h = strip_new_run_events([generate_history(SUITES[g % len(SUITES)], SEED + 8, g,
+                                                   REPL_EVENTS)])[0][:-1]
+        half = -(-len(h) // 2)
+        sb = StateBuilder()
+        sb.replay_history(h[:half])
+        at_half = copy.deepcopy(sb.ms)
+        for b in h[half:]:
+            sb.apply_batch(b)
+        out.append((h, half, at_half, sb.ms))
+    return out
+
+
 def _branch_tree(rng: random.Random, i: int):
     """A divergent version-history tree as tests/test_chain_branch.py builds
     them: a prefix on branch 0, then some of: a losing suffix persisted
@@ -621,15 +771,30 @@ def generate(args):
                  for s, n in _chunks(args.verify_per_suite, 512)])
     stasks = [(suite, s, n) for suite in SERVING_SUITES
               for s, n in _chunks(args.serving_per_suite, 256)]
+    from cadence_tpu_torch.gen.fuzz import PROFILES
+
+    ftasks = []
+    for profile in PROFILES:
+        sample = rng.choice(args.fuzz_per_profile, size=min(256, args.fuzz_per_profile),
+                            replace=False)
+        for start, n in _chunks(args.fuzz_per_profile, 1024):
+            ftasks.append((profile, start, n, sorted(int(i) for i in sample
+                                                     if start <= i < start + n)))
+    mtasks = _chunks(args.mig_workflows, 512)
+    ptasks = _chunks(args.repl_workflows, 512)
     if args.shapes_only:  # the suites alone
         otasks = ctasks = ttasks = vtasks = rtasks = stasks = []
+    if args.shapes_only or args.visibility_only:
+        ftasks = mtasks = ptasks = []
+    if args.new_phases_only:
+        tasks = otasks = ctasks = ttasks = vtasks = rtasks = stasks = []
     ns_rng = np.random.default_rng(SEED + 6)
     ntasks = [(int(b) * NS_BLOCK, NS_BLOCK, args.ns_events)
               for b in sorted(ns_rng.choice(GEN_CHECK_W // NS_BLOCK, NS_BLOCKS, replace=False))]
     native_sample = sorted(int(i) for i in ns_rng.choice(NATIVE_GEN_W, NATIVE_GEN_SAMPLE,
                                                          replace=False))
     gtasks = [(native_sample[k::8], args.ns_events) for k in range(8)]
-    if args.shapes_only:
+    if args.shapes_only or args.new_phases_only:
         ntasks = gtasks = []
 
     from cadence_tpu_torch.native.build import load_generator
@@ -641,13 +806,21 @@ def generate(args):
         pending = [pool.map_async(fn, ts, chunksize=1) for fn, ts in (
             (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks),
             (_gen_states, vtasks), (_gen_cut_states, rtasks), (_gen_serving, stasks),
-            (_gen_ns_oracle, ntasks), (_gen_native_oracle, gtasks))]
+            (_gen_ns_oracle, ntasks), (_gen_native_oracle, gtasks), (_gen_fuzz, ftasks),
+            (_gen_migration, mtasks), (_gen_replication, ptasks))]
         (main_parts, over_parts, chain_parts, tree_parts, state_parts, cut_parts,
-         serving_parts, ns_parts, native_parts) = (p.get() for p in pending)
+         serving_parts, ns_parts, native_parts, fuzz_parts, mig_parts,
+         repl_parts) = (p.get() for p in pending)
     histories, oracle = _concat(tasks, [(h, o) for h, o, _ in main_parts])
     blobs = [b for _, _, part in main_parts for b in part]
     over_h, over_oracle = _concat(otasks, [(h, o) for h, o, _ in over_parts])
     chain_lanes, chain_oracle = _concat(ctasks, chain_parts)
+    fuzz, fuzz_oracle = {}, {}
+    for task, (hs, lanes, orc) in zip(ftasks, fuzz_parts):  # a profile's tasks in order
+        got = fuzz.setdefault(task[0], ([], []))
+        got[0].extend(hs)
+        got[1].extend(lanes)
+        fuzz_oracle.update({(task[0], i): v for i, v in orc.items()})
     return {
         "histories": histories, "oracle": oracle,
         "overflow": over_h, "overflow_oracle": over_oracle,
@@ -662,6 +835,9 @@ def generate(args):
         "ns_blocks": [(task[0], lanes) for task, (lanes, _) in zip(ntasks, ns_parts)],
         "ns_oracle": {i: row for _, orc in ns_parts for i, row in orc.items()},
         "native_oracle": {i: row for part in native_parts for i, row in part.items()},
+        "fuzz": fuzz, "fuzz_oracle": fuzz_oracle,
+        "migration": [w for part in mig_parts for w in part],
+        "replication": [w for part in repl_parts for w in part],
         "seconds": time.perf_counter() - t0,
     }
 
@@ -2760,11 +2936,11 @@ def vis_delta(g, n: int, b: int, real: int, targets, dev):
 
 def vis_shapes(dev, timed) -> None:
     """Kernels J and L at the shapes visibility_path launches them with,
-    through `timed` (launch_shapes'): J over the view's 2^21-row capacity
-    (1,048,576 records and the ties domain of 4,096) for the burst's three
+    through `timed` (launch_shapes'): J over the view's 2^20-row capacity
+    (524,288 records and the ties domain of 4,096) for the burst's three
     plans (count) and bench.py's six queries (bitmap); L at the burst's
     delta (a 64-row bucket holding one changed row, the view's 10 columns),
-    and at 512 and 65,536 rows into 24 columns of 2^21 rows (scan_apply:
+    and at 512 and 65,536 rows into 24 columns of 2^20 rows (scan_apply:
     the kernel alone); and L through the view's own feed at FEED_SHAPES
     (feed_shape: the packed block's copy and the launch)."""
     import numpy as np
@@ -2882,7 +3058,7 @@ STAGING_SPIN_CYCLES = 4_000_000
 
 def vis_staging(dev, reps: int = REPS) -> dict:
     """The host cost of kernel J's and kernel L's feeds in the device view
-    at visibility_path's capacity (2^21 rows, the view's 10 columns, 4,096
+    at visibility_path's capacity (2^20 rows, the view's 10 columns, 4,096
     records): one drain's _sync_device_locked after a one-row change (the
     delta staged and kernel L launched), and one scan_count of the ties
     domain read back with int(). Each is timed behind a queued spin kernel
@@ -3621,6 +3797,369 @@ def feeder_path(corp, dev, rows, crcs, errors, real):
     return launches
 
 
+def fuzz_parity(corp, dev):
+    """Phase fuzz_parity: (a) the port's gen/fuzz.parity_run on the card at
+    its defaults, its document held to the run of record; (b) each
+    `fuzz:<profile>` corpus through replay_corpus and, packed as wirec,
+    replay_wirec_to_crc, the CRCs equal, the sampled rows the oracle's.
+    Returns the launch counts of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import crc32_of_rows
+    from cadence_tpu_torch.gen import fuzz as FZ
+    from cadence_tpu_torch.native import wirec as NW
+    from cadence_tpu_torch.ops import _build, replay as R
+    from cadence_tpu_torch.ops.encode import LANE_EVENT_ID, assemble_corpus
+    from cadence_tpu_torch.utils.metrics import MetricsRegistry
+
+    # (a) parity_run: dense, wirec, verify_all and the NDC tree replay
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    doc = FZ.parity_run(device=DEVICE)
+    t_run = time.perf_counter() - t0
+    run_launches = dict(_build.launches)
+    check_launches(run_launches, "fuzz_parity (a)", FUZZ_PARITY_KERNELS)
+    bad = {k: doc[k] for k in ("dense_divergent", "wirec_divergent", "device_errors",
+                               "verify_divergent", "verify_fallback", "ndc_divergent")
+           if doc[k] != 0}
+    if not doc["ok"] or bad or doc["missing_decisions"]:
+        fail(f"fuzz_parity (a): parity_run ok={doc['ok']}, {bad}, missing "
+             f"{doc['missing_decisions']}")
+    got = {k: doc[k] for k in FUZZ_RUN}
+    if got != FUZZ_RUN or doc["decision_coverage"] != FUZZ_DECISIONS:
+        fail(f"fuzz_parity (a): {got} and coverage {doc['decision_coverage']}, not the run of "
+             f"record's {FUZZ_RUN}")
+    if doc["verify_total"] != FUZZ_RUN["workflows"]:
+        fail(f"fuzz_parity (a): verify_all saw {doc['verify_total']} workflows")
+
+    # (b) the grammar at the main path's scale
+    reg = MetricsRegistry()
+    hs = [h for p in FZ.PROFILES for h in corp["fuzz"][p][0]]
+    lanes = assemble_corpus([x for p in FZ.PROFILES for x in corp["fuzz"][p][1]])
+    real = int((lanes[:, :, LANE_EVENT_ID] > 0).sum())
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rows, crcs, errors = R.replay_corpus(hs, device=DEVICE)
+    t_int64 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wc = NW.pack_wirec_auto(lanes, registry=reg)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crc_c, err_c = R.replay_wirec_to_crc(*NW.stage_corpus(wc, dev), wc.profile, device=DEVICE)
+    crc_c, err_c = crc_c.cpu().numpy().astype(np.uint32), err_c.cpu().numpy()
+    t_wirec = time.perf_counter() - t0
+    scale_launches = dict(_build.launches)
+    check_launches(scale_launches, "fuzz_parity (b)", FUZZ_SCALE_KERNELS)
+    if rows.shape[0] != len(hs) or (errors != 0).any():
+        fail(f"fuzz_parity (b): {int((errors != 0).sum())} rows with errors "
+             f"{np.unique(errors).tolist()}")
+    if not np.array_equal(crc_c, crcs) or not np.array_equal(err_c, errors):
+        fail(f"fuzz_parity (b): {int((crc_c != crcs).sum())} wirec CRCs differ from the int64 "
+             "path's")
+    per_profile, base = {}, 0
+    for p in FZ.PROFILES:
+        n = len(corp["fuzz"][p][0])
+        sample = {i: v for (q, i), v in corp["fuzz_oracle"].items() if q == p}
+        diff = [i for i, v in sample.items()
+                if v is None or not np.array_equal(rows[base + i], v[0])
+                or crcs[base + i] != crc32_of_rows(v[0][None])[0]]
+        if diff:
+            fail(f"fuzz_parity (b): {len(diff)} sampled fuzz:{p} rows differ from the oracle, "
+                 f"first {diff[:5]}")
+        per_profile[p] = {"workflows": n, "oracle_sampled": len(sample),
+                          "events": int((lanes[base:base + n, :, LANE_EVENT_ID] > 0).sum())}
+        base += n
+    emit("fuzz_parity",
+         run={**{k: doc[k] for k in ("workflows", "events", "event_kinds", "ndc_forked",
+                                     "verify_total", "verify_resident", "verify_escalated",
+                                     "dense_divergent", "wirec_divergent", "device_errors",
+                                     "verify_divergent", "ndc_divergent", "ok")},
+              "decisions_covered": len(doc["decision_coverage"]) - len(doc["missing_decisions"]),
+              "seconds": t_run, "launches": run_launches},
+         scale={"workflows": len(hs), "max_events": int(lanes.shape[1]), "real_events": real,
+                "profiles": per_profile, "replay_corpus_s": t_int64,
+                "int64_events_per_s": real / t_int64, "wirec_pack_s": t_pack,
+                "wirec_stage_and_replay_s": t_wirec, "wirec_events_per_s": real / t_wirec,
+                "wirec_with_pack_events_per_s": real / (t_pack + t_wirec),
+                "bytes_per_event": wc.bytes_per_event(), "crcs_equal": len(hs),
+                "launches": scale_launches})
+    return run_launches, scale_launches
+
+
+def migration_path(corp):
+    """Phase migration_path: host 1's engine warmed through verify_all,
+    half of MIG_SHARDS migrated out through the shared snapshot store, 1-3
+    batches appended to half of the moved open keys, then
+    MigrationManager.hydrate_shards on host 2's engine. Returns the launch
+    counts of the hydration."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+    from cadence_tpu_torch.core.enums import WorkflowState
+    from cadence_tpu_torch.engine.migration import MigrationManager
+    from cadence_tpu_torch.engine.persistence import Stores
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.utils import metrics as M
+
+    work = corp["migration"]
+    t0 = time.perf_counter()
+    stores = Stores()
+    keys, live = [], {}
+    for h, cut, at_cut, _after in work:
+        key = (h[0].domain_id, h[0].workflow_id, h[0].run_id)
+        for b in h[:cut]:
+            stores.history.append_batch(*key, list(b.events))
+        stores.execution.upsert_workflow(at_cut)
+        keys.append(key)
+        live[key] = at_cut
+    t_stores = time.perf_counter() - t0
+    host1 = TPUReplayEngine(stores, chunk_workflows=4096, device=DEVICE)
+    host1.metrics = M.MetricsRegistry()
+    t0 = time.perf_counter()
+    res = host1.verify_all()
+    t_warm = time.perf_counter() - t0
+    if not res.ok or len(host1.resident) != len(keys):
+        fail(f"migration_path: host 1's verify_all ok={res.ok}, {len(host1.resident)} of "
+             f"{len(keys)} keys resident")
+    mgr1 = MigrationManager("host-1", MIG_SHARDS, host1)
+    moved = list(range(0, MIG_SHARDS, 2))
+    t0 = time.perf_counter()
+    out = mgr1.migrate_out(moved)
+    t_out = time.perf_counter() - t0
+    in_moved = [k for k in keys if mgr1.shard_of(k) in moved]
+    if out.considered != len(in_moved) or out.snapshotted != len(in_moved) or out.skipped:
+        fail(f"migration_path: migrate_out {out}, {len(in_moved)} keys in the moved shards")
+    left = [k for k in keys if (host1.resident.entry_for(k) is not None) != (k not in in_moved)]
+    if left:
+        fail(f"migration_path: {len(left)} keys resident on the wrong side of the move")
+    # commits land between the move and the steal: half of the moved open keys
+    appended, suffix_events, moving = set(), 0, set(in_moved)
+    for i, ((h, cut, _at_cut, after), key) in enumerate(zip(work, keys)):
+        if after is None or key not in moving or i % 2:
+            continue
+        for b in h[cut:]:
+            stores.history.append_batch(*key, list(b.events))
+            suffix_events += len(b.events)
+        stores.execution.upsert_workflow(after)
+        live[key] = after
+        appended.add(key)
+    closed = {k for k in in_moved
+              if int(live[k].execution_info.state) == int(WorkflowState.Completed)}
+    host2 = TPUReplayEngine(stores, chunk_workflows=4096, device=DEVICE)
+    reg = M.MetricsRegistry()
+    M.preregister_migration(reg)
+    host2.metrics = reg
+    mgr2 = MigrationManager("host-2", MIG_SHARDS, host2, registry=reg)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rep = mgr2.hydrate_shards(moved)
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check_launches(launches, "migration_path", MIGRATION_PATH_KERNELS)
+    open_moved = len(in_moved) - len(closed)
+    if (rep.considered != len(in_moved) or rep.skipped_closed != len(closed)
+            or rep.hydrated != open_moved or rep.cold or rep.young or rep.stale
+            or rep.already_resident or rep.parity_divergence or rep.parity_skipped_unstable):
+        fail(f"migration_path: hydrate_shards {rep}; {len(in_moved)} moved keys, "
+             f"{len(closed)} closed")
+    if rep.suffix_events != suffix_events:
+        fail(f"migration_path: {rep.suffix_events} suffix events replayed, not the "
+             f"{suffix_events} appended")
+    bad = []
+    for key in in_moved:
+        entry = host2.resident.entry_for(key)
+        if key in closed:
+            if entry is not None:
+                bad.append(key)
+            continue
+        row = payload_row(live[key])
+        row[STICKY_ROW_INDEX] = 0
+        if (entry is None or not np.array_equal(np.asarray(entry.payload), row)
+                or entry.branch != live[key].version_histories.current_index):
+            bad.append(key)
+    if bad:
+        fail(f"migration_path: {len(bad)} hydrated rows differ from the oracle's, first {bad[:3]}")
+    emit("migration_path", workflows=len(keys), shards=MIG_SHARDS, moved_shards=moved,
+         moved_keys=len(in_moved), closed_skipped=rep.skipped_closed, hydrated=rep.hydrated,
+         cold=rep.cold, suffix_keys=len(appended), suffix_events=rep.suffix_events,
+         rows_equal_oracle=open_moved, migrate_out={"snapshotted": out.snapshotted,
+                                                    "evicted": out.evicted, "seconds": t_out},
+         stores_s=t_stores, warm_verify_s=t_warm, hydrate_s=t_in,
+         hydrate_workflows_per_s=rep.hydrated / t_in, stats=mgr2.stats(),
+         resident_pool=pool_stats(host2.resident), launches=launches)
+    return launches
+
+
+def replication_apply(corp):
+    """Phase replication_apply: an active Stores publishing every batch of
+    REPL_WORKFLOWS open workflows; a standby Stores whose
+    ReplicationTaskProcessor has the port's engine (tpu=...). The first
+    half of each history drains (host apply; the device counts the keys
+    cold), verify_all warms the standby's pool, REPL_SHIPPED keys' snapshots
+    ship from the active's snapshotter, and the rest drains: the device
+    applies every open key as a suffix. Then the kill-switch leg. Returns
+    the launch counts of the second drain."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import STICKY_ROW_INDEX, payload_row
+    from cadence_tpu_torch.engine import replication as RP
+    from cadence_tpu_torch.engine.cache import batch_crc
+    from cadence_tpu_torch.engine.persistence import Stores
+    from cadence_tpu_torch.engine.rebuild import DeviceRebuilder
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.oracle.mutable_state import VersionHistory
+    from cadence_tpu_torch.utils import metrics as M
+
+    def publish(pub, active, work, part, vh):
+        """Commit the first half (part 0) or the rest of each history on the
+        active side, each batch published with its branch's version history."""
+        n = 0
+        for h, half, _at_half, _final in work:
+            key = (h[0].domain_id, h[0].workflow_id, h[0].run_id)
+            branch = vh.setdefault(key, VersionHistory())
+            for b in (h[:half] if part == 0 else h[half:]):
+                active.history.append_batch(*key, list(b.events))
+                for e in b.events:
+                    branch.add_or_update_item(e.id, e.version)
+                pub.publish(*key, list(b.events),
+                            tuple((i.event_id, i.version) for i in branch.items))
+                n += 1
+        return n
+
+    def drain(proc):
+        """One pass over the backlog: the per-domain bound lifted (every
+        workflow shares one domain), so the touched keys reach the device
+        apply as one group."""
+        proc.domain_budget = 0
+        return proc.process_once(batch_size=proc.source.stores.queue.size(RP.REPLICATION_QUEUE))
+
+    def run(work, shipped: int):
+        active, standby = Stores(), Stores()
+        pub = RP.ReplicationPublisher(active)
+        reg = M.MetricsRegistry()
+        M.preregister_replication(reg)
+        tpu = TPUReplayEngine(standby, chunk_workflows=4096, device=DEVICE)
+        tpu.metrics = reg
+        proc = RP.ReplicationTaskProcessor(
+            RP.HistoryReplicator(standby, rebuilder=DeviceRebuilder(device=DEVICE)), pub,
+            standby, tpu=tpu)
+        proc.metrics = reg
+        vh, legs = {}, {}
+        t0 = time.perf_counter()
+        n1 = publish(pub, active, work, 0, vh)
+        for _h, _half, at_half, _final in work:
+            active.execution.upsert_workflow(at_half)
+        legs["publish_1_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if drain(proc) != n1:
+            fail("replication_apply: the first drain left tasks behind")
+        legs["drain_1_s"] = time.perf_counter() - t0
+        keys = [(h[0].domain_id, h[0].workflow_id, h[0].run_id) for h, *_ in work]
+        ship, warm = keys[:shipped], keys[shipped:]
+        t0 = time.perf_counter()
+        res = tpu.verify_all(warm)
+        legs["warm_verify_s"] = time.perf_counter() - t0
+        if not res.ok or len(tpu.resident) != len(warm):
+            fail(f"replication_apply: the standby's verify_all ok={res.ok}, "
+                 f"{len(tpu.resident)} of {len(warm)} keys resident")
+        t0 = time.perf_counter()
+        if ship:  # the active's snapshot writer ships every record it writes
+            source = TPUReplayEngine(active, chunk_workflows=4096, device=DEVICE)
+            source.snapshotter().shipper = lambda rec: pub.publish_snapshot(rec, "active")
+            if not source.verify_all(ship).ok:
+                fail("replication_apply: the active's verify_all of the shipped keys diverged")
+            written = sum(source.snapshotter().snapshot_key(k, force=True) for k in ship)
+            if written != len(ship):
+                fail(f"replication_apply: {written} of {len(ship)} snapshots written")
+        legs["ship_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n2 = publish(pub, active, work, 1, vh)
+        for _h, _half, _at_half, final in work:
+            active.execution.upsert_workflow(final)
+        legs["publish_2_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        if drain(proc) != n2 + len(ship):
+            fail("replication_apply: the second drain left tasks behind")
+        torch.cuda.synchronize()
+        legs["drain_2_s"] = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        # the standby equals the active: histories (batch count, last batch)
+        # and live states
+        bad = []
+        for key in keys:
+            a_ms, s_ms = active.execution.get_workflow(*key), standby.execution.get_workflow(*key)
+            ra, rs = payload_row(a_ms), payload_row(s_ms)
+            ra[STICKY_ROW_INDEX] = rs[STICKY_ROW_INDEX] = 0
+            ab, sb_ = active.history.batch_count(*key), standby.history.batch_count(*key)
+            if (not np.array_equal(ra, rs) or ab != sb_
+                    or a_ms.execution_info.next_event_id != s_ms.execution_info.next_event_id
+                    or batch_crc(active.history.as_history_batches_range(*key, ab - 1)[0])
+                    != batch_crc(standby.history.as_history_batches_range(*key, sb_ - 1)[0])):
+                bad.append(key)
+        if bad:
+            fail(f"replication_apply: {len(bad)} standby states differ from the active's, "
+                 f"first {bad[:3]}")
+        return keys, tpu, proc, reg, launches, legs, n1 + n2
+
+    work = corp["replication"]
+    keys, tpu, proc, reg, launches, legs, tasks = run(work, REPL_SHIPPED)
+    check_launches(launches, "replication_apply", REPLICATION_APPLY_KERNELS)
+    snap = reg.snapshot().get(M.SCOPE_REPLICATION, {})
+    finished = snap.get(M.M_REPL_DEVICE_APPLIED, 0)
+    # every key is open: each finished on the device in the second drain
+    # (cold in the first, when the standby's pool was empty)
+    if (finished != len(keys) or snap.get(M.M_REPL_DEVICE_DIVERGENCE, 0)
+            or snap.get(M.M_REPL_DEVICE_UNSTABLE, 0) or snap.get(M.M_REPL_DEVICE_STALE, 0)
+            or snap.get(M.M_REPL_SNAP_INSTALLED, 0) != REPL_SHIPPED
+            or proc.snapshots_installed != REPL_SHIPPED
+            or snap.get(M.M_REPL_DEVICE_COLD, 0) != len(keys)):
+        fail(f"replication_apply: device apply counters {snap}")
+    bad = []
+    for (h, _half, _at_half, final), key in zip(work, keys):
+        entry = tpu.resident.entry_for(key)
+        row = payload_row(final)
+        row[STICKY_ROW_INDEX] = 0
+        if entry is None or not np.array_equal(np.asarray(entry.payload), row):
+            bad.append(key)
+    if bad:
+        fail(f"replication_apply: {len(bad)} resident rows differ from the oracle's")
+    # the kill switch: the same drain, no device work
+    os.environ[RP.ENABLE_DEVICE_ENV] = "0"
+    try:
+        k_keys, k_tpu, _k_proc, k_reg, k_launches, k_legs, k_tasks = run(
+            work[:REPL_KILL_SWITCH], 0)
+    finally:
+        del os.environ[RP.ENABLE_DEVICE_ENV]
+    k_snap = k_reg.snapshot().get(M.SCOPE_REPLICATION, {})
+    if any(k_launches.values()) or any(k_snap.get(n, 0) for n in (
+            M.M_REPL_DEVICE_APPLIED, M.M_REPL_DEVICE_COLD, M.M_REPL_DEVICE_SUFFIX_EVENTS)):
+        fail(f"replication_apply: with {RP.ENABLE_DEVICE_ENV}=0 the drain launched "
+             f"{ {k: n for k, n in k_launches.items() if n} } ({k_snap})")
+    emit("replication_apply", workflows=len(keys), events_a_history=REPL_EVENTS, tasks=tasks,
+         shipped=REPL_SHIPPED, finished=finished,
+         cold=snap.get(M.M_REPL_DEVICE_COLD, 0),
+         invalidated=reg.counter(M.SCOPE_TPU_RESIDENT, M.M_CACHE_INVALIDATIONS),
+         suffix_events=snap.get(M.M_REPL_DEVICE_SUFFIX_EVENTS, 0),
+         snapshots_installed=proc.snapshots_installed, standby_equal_active=len(keys),
+         resident_rows_equal_oracle=len(keys), legs=legs,
+         drain_2_workflows_per_s=len(keys) / legs["drain_2_s"],
+         counters=snap, resident_pool=pool_stats(tpu.resident), launches=launches,
+         kill_switch={"workflows": len(k_keys), "tasks": k_tasks, "launches": 0,
+                      "legs": k_legs, "resident": len(k_tpu.resident)})
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -3641,6 +4180,9 @@ def main() -> int:
                    help="run the suites corpus, the build and kernel_launch_shapes, and stop")
     p.add_argument("--visibility-only", action="store_true",
                    help="run the build, kernel_vis, vis_staging and visibility_path, and stop")
+    p.add_argument("--new-phases-only", action="store_true",
+                   help="run the build, fuzz_parity, migration_path and replication_apply, "
+                        "and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
@@ -3658,6 +4200,9 @@ def main() -> int:
     args.gen_plain_w = 4096
     args.vis_rows = VIS_ROWS if full else 1 << 16
     args.vis_records = VIS_RECORDS if full else 16384
+    args.fuzz_per_profile = FUZZ_PER_PROFILE if full else 256
+    args.mig_workflows = MIG_WORKFLOWS if full else 512
+    args.repl_workflows = REPL_WORKFLOWS if full else 512
 
     import torch
 
@@ -3694,6 +4239,8 @@ def main() -> int:
         histories, oracle = corp["histories"], corp["oracle"]
         emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
              chains=int(corp["chains"].shape[0]), trees=int(corp["trees"].shape[0]),
+             fuzz=sum(len(v[0]) for v in corp["fuzz"].values()),
+             migration=len(corp["migration"]), replication=len(corp["replication"]),
              workers=os.cpu_count(), seconds=corp["seconds"])
 
     # --- 1. probe and build
@@ -3716,6 +4263,14 @@ def main() -> int:
         kernel_vis(args, dev, [])
         vis_staging(dev)
         visibility_path(args)
+        print(smi)
+        return 0
+    if args.new_phases_only:
+        fuzz_launches, scale_launches = fuzz_parity(corp, dev)
+        new_paths = {"fuzz_parity": fuzz_launches, "fuzz_scale": scale_launches,
+                     "migration_path": migration_path(corp),
+                     "replication_apply": replication_apply(corp)}
+        print(json.dumps({"launches": new_paths}))
         print(smi)
         return 0
 
@@ -4373,6 +4928,16 @@ def main() -> int:
     # --- 9. serving_path: the serving scheduler under eight submitter threads
     serving_launches = serving_path(args, corp)
 
+    # --- 9b. fuzz_parity: the fuzz grammar's parity run and its corpora at scale
+    fuzz_launches, scale_launches = fuzz_parity(corp, dev)
+    del corp["fuzz"]
+
+    # --- 9c. migration_path: shard migration between two hosts' engines
+    migration_launches = migration_path(corp)
+
+    # --- 9d. replication_apply: the standby's device apply behind its pump
+    replication_launches = replication_apply(corp)
+
     # --- 10. kernel_vis: kernels J, K and L on the columnar table
     kernel_vis(args, dev, records)
 
@@ -4386,7 +4951,9 @@ def main() -> int:
              "north_star_parity": parity_launches, "host_generator": host_gen_launches,
              "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches,
              "verify_path": verify_launches, "resident_path": resident_launches,
-             "serving_path": serving_launches, "visibility_path": visibility_launches}
+             "serving_path": serving_launches, "fuzz_parity": fuzz_launches,
+             "fuzz_scale": scale_launches, "migration_path": migration_launches,
+             "replication_apply": replication_launches, "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
         if rec["name"] == "payload":

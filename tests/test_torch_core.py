@@ -6,11 +6,12 @@ import pytest
 
 from cadence_tpu.core import checksum as j_checksum
 from cadence_tpu.gen import corpus as j_corpus
-from cadence_tpu.gen.fuzz import history_digest
+from cadence_tpu.gen import fuzz as j_fuzz
 from cadence_tpu.ops import encode as j_encode
 from cadence_tpu.oracle.state_builder import StateBuilder as JStateBuilder
 from cadence_tpu_torch.core import checksum as t_checksum
 from cadence_tpu_torch.gen import corpus as t_corpus
+from cadence_tpu_torch.gen.fuzz import PROFILES, history_digest
 from cadence_tpu_torch.ops import encode as t_encode
 from cadence_tpu_torch.oracle.state_builder import StateBuilder as TStateBuilder
 
@@ -31,6 +32,15 @@ def test_suites_are_the_same():
 def test_histories_identical(suite):
     jh, th = _both(suite)
     assert [history_digest(h) for h in th] == [history_digest(h) for h in jh]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_fuzz_histories_identical(profile):
+    """The port's grammar gives the JAX package's bytes: each package's
+    digest of its own `fuzz:<profile>` histories."""
+    suite = f"fuzz:{profile}"
+    jh, th = _both(suite)
+    assert [history_digest(h) for h in th] == [j_fuzz.history_digest(h) for h in jh]
 
 
 @pytest.mark.parametrize("suite", SUITES)

@@ -63,3 +63,10 @@ def _imports(path):
 def test_source_imports_no_jax(path):
     bad = [name for name in _imports(path) if _forbidden(name)]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("name", ["gen.fuzz", "gen.shrink", "engine.migration", "engine.replication"])
+def test_the_walk_reaches_the_fuzz_and_cluster_modules(name):
+    """The grammar, its shrinker, shard migration and the replication pump
+    are among the modules both tests above walk."""
+    assert f"cadence_tpu_torch.{name}" in set(_modules())

@@ -8,11 +8,11 @@ import torch
 
 from cadence_tpu.core.checksum import DEFAULT_LAYOUT, crc32_of_rows
 from cadence_tpu.gen.corpus import SUITES, generate_corpus
-from cadence_tpu.gen.fuzz import oracle_final_row
 from cadence_tpu.ops import encode as j_encode
 from cadence_tpu.ops import replay as jr
 from cadence_tpu.ops.state import widen_layout
 from cadence_tpu_torch.gen import corpus as t_corpus
+from cadence_tpu_torch.gen.fuzz import oracle_final_row
 from cadence_tpu_torch.gen.lanes import random_lanes
 from cadence_tpu_torch.ops import replay as tr
 from cadence_tpu_torch.ops.convert import state_from_numpy, state_to_numpy
@@ -26,13 +26,13 @@ W = 16
 def test_replay_corpus(suite):
     hs = generate_corpus(suite, W, seed=17, target_events=100)
     want = jr.replay_corpus(hs, max_events=E_PAD)
-    got = tr.replay_corpus(t_corpus.generate_corpus(suite, W, seed=17, target_events=100),
-                           max_events=E_PAD, device="cpu")
+    th = t_corpus.generate_corpus(suite, W, seed=17, target_events=100)
+    got = tr.replay_corpus(th, max_events=E_PAD, device="cpu")
     assert got[1].dtype == np.uint32
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
     rows, crcs, errors = got
-    for i, h in enumerate(hs):
+    for i, h in enumerate(th):
         if errors[i] == 0:
             expected = oracle_final_row(h)
             assert np.array_equal(rows[i], expected)

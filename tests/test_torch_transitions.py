@@ -7,9 +7,10 @@ import pytest
 from cadence_tpu.core.enums import EventType as ET
 from cadence_tpu.core.events import HistoryBatch, HistoryEvent
 from cadence_tpu.gen.corpus import SUITES, HistoryWriter, generate_corpus
-from cadence_tpu.gen.fuzz import generate_fuzz_corpus
+from cadence_tpu.gen.fuzz import generate_fuzz_corpus as j_generate_fuzz_corpus
 from cadence_tpu.ops import encode as j_encode
 from cadence_tpu.ops.replay import replay_events as j_replay_events
+from cadence_tpu_torch.gen.fuzz import generate_fuzz_corpus
 from cadence_tpu_torch.gen.lanes import random_lanes
 from cadence_tpu_torch.ops import encode as t_encode
 from cadence_tpu_torch.ops.convert import state_from_numpy
@@ -40,7 +41,10 @@ def test_suites(suite):
 @pytest.mark.parametrize("profile", ["mixed", "ndc_conflict", "chain", "child_tree"])
 def test_fuzz_corpora(profile):
     hs = generate_fuzz_corpus(W, seed=5, target_events=80, profile=profile)
-    ev = j_encode.encode_corpus(hs)
+    ev = t_encode.encode_corpus(hs)
+    # the port's grammar and encoder give the JAX package's lanes
+    assert np.array_equal(ev, j_encode.encode_corpus(
+        j_generate_fuzz_corpus(W, seed=5, target_events=80, profile=profile)))
     if ev.shape[1] > E_PAD:
         ev = ev[:, :E_PAD]
     _check(ev)
