@@ -11,8 +11,8 @@
     python3 chip_smoke.py --new-phases-only  # their corpora, the build, fuzz_parity,
                                      # migration_path and replication_apply
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
-                                     # checkout's kernels A, B, C, D, G, H, I, J,
-                                     # K, L and A's generator reader (and
+                                     # checkout's kernels A, B, C, D, E, G, H, I,
+                                     # J, K, L and A's generator reader (and
                                      # VARIANTS) in kernel_launch_shapes and
                                      # kernel_vis
 
@@ -108,7 +108,14 @@ Phases, one JSON line each:
      at 4,096 behind a spin kernel (reduce_shapes), and kernel B with its
      fit epilogue at H_SHAPES and its counts epilogue at F_SHAPES, with the
      parent's B then H or F on the same state as its parent, and B alone
-     at B_SHAPES (next_shapes).
+     at B_SHAPES (next_shapes). Kernel E where the paths decode wirec
+     bytes (kernel A's wirec reader's launches): a 64 x 16 flush of
+     carried suffixes, the feeder's 4,096 x 123 chunk, the 40,960 x 123
+     corpus, and the fuzz corpus (28,672 x 117) packed whole and each of
+     its seven profiles packed alone and tiled to its rows; each equal to
+     its plain version and the lanes, also from a slab at an odd byte
+     offset, and kernel A on its output equal to the fused reader
+     (decode_shapes; --shapes-only also makes the fuzz corpus for it).
      kernel_replay_traps: kernel A (every reader, with and without tasks)
      and kernel B against their plain versions on gen/lanes.py
      trap_corpus states at x1, x2, x4 and x8 and random lanes at x8, every
@@ -784,8 +791,10 @@ def generate(args):
     ptasks = _chunks(args.repl_workflows, 512)
     if args.shapes_only:  # the suites alone
         otasks = ctasks = ttasks = vtasks = rtasks = stasks = []
-    if args.shapes_only or args.visibility_only:
-        ftasks = mtasks = ptasks = []
+    if args.shapes_only or args.visibility_only:  # the fuzz corpus stays for kernel E's shapes
+        mtasks = ptasks = []
+    if args.visibility_only:
+        ftasks = []
     if args.new_phases_only:
         tasks = otasks = ctasks = ttasks = vtasks = rtasks = stasks = []
     ns_rng = np.random.default_rng(SEED + 6)
@@ -2323,7 +2332,8 @@ ENTRY = {"replay": "cadence_replay", "replay_tasks": "cadence_replay_tasks",
          "vis_mask_table": "cadence_vis_mask_table", "vis_topk": "cadence_vis_topk",
          "vis_topk_table": "cadence_vis_topk_table", "vis_apply": "cadence_vis_apply",
          "crc32": "cadence_crc32", "verify_rows": "cadence_verify_rows",
-         "narrow_ok": "cadence_narrow_ok", "stats": "cadence_stats"}
+         "narrow_ok": "cadence_narrow_ok", "stats": "cadence_stats",
+         "decode_wirec": "cadence_decode_wirec"}
 #: kernel B's entry point before its epilogues (a parent commit's): its
 #: parameters, and the positions of the port's arguments it takes (all but
 #: out B, fit, counts and the counts scratch)
@@ -2334,7 +2344,7 @@ PAYLOAD_BEFORE_ARGS = tuple(range(10)) + (14,)
 #: the kernels kernel_launch_shapes times, by the source files that build them
 #: (and kernel A's entry points, replay*.cu)
 SHAPE_SOURCES = ("payload.cu", "rehome.cu", "genkernel.cu", "scan.cu", "crc32.cu", "verify.cu",
-                 "stats.cu")
+                 "stats.cu", "wirec.cu")
 #: the rows kernel C is launched with: feeder_path's 4,096-workflow chunks,
 #: north_star's 16,384 and 131,072 chunks, the main path's bulk (40,960)
 C_SHAPES = (4096, 16384, 40960, 131072)
@@ -2499,7 +2509,7 @@ def kept(launch, *outputs):
     return launch, outputs
 
 
-def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
+def launch_shapes(events_np, dev, gen_events: int, variants=(), fuzz=None) -> dict:
     """Phase kernel_launch_shapes: kernel A (each reader, with and without
     tasks), kernel B, kernel G, kernel I and A's generator reader timed at the shapes the driven
     paths launch them with, each beside its bound and the launch floor (a
@@ -2511,7 +2521,9 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
     the resident pool's shapes (rehome_shapes), kernel I at the north
     star's parity leg (NS_BLOCK x gen_events) and at GEN_CHECK_W x
     gen_events, kernel A's generator reader at GEN_CHECK_W and at the
-    largest of NS_CHUNKS x gen_events. Returns the phase's record."""
+    largest of NS_CHUNKS x gen_events, kernel E where the paths decode
+    wirec bytes (decode_shapes; `fuzz` is generate()'s fuzz corpus).
+    Returns the phase's record."""
     import numpy as np
     import torch
 
@@ -2689,11 +2701,12 @@ def launch_shapes(events_np, dev, gen_events: int, variants=()) -> dict:
         torch.cuda.empty_cache()
     reduce = reduce_shapes(finals[W_all], dev, timed)
     next_shapes(finals[CHUNK_W], finals[W_all], dev, timed)
+    decode = decode_shapes(events_np, fuzz, dev, timed)
     vis_shapes(dev, timed)
     vis_feeds = vis_staging(dev)
     return {"floor_ms": floor, "floor_device_ms": floor_device, "shapes": shapes,
             "rehome_staging": staging, "gen_lanes_max_abs_err": gen_err, "vis_staging": vis_feeds,
-            "reduce_shapes": reduce}
+            "reduce_shapes": reduce, "decode_shapes": decode}
 
 
 def next_shapes(chunk, bulk, dev, timed) -> None:
@@ -2852,6 +2865,98 @@ def reduce_shapes(state, dev, timed, reps: int = REPS) -> dict:
             out["spin_ms"] = spin_ms
         del rows, branch, exp, exp_br
     emit("reduce_shapes", **out)
+    return out
+
+
+#: kernel A's wirec reader's flush shape: 64 workflows' last 16 events from
+#: carried states (launch_shapes' 64 x 16 readers)
+E_FLUSH = (64, 16)
+
+
+def decode_shapes(events_np, fuzz, dev, timed) -> dict:
+    """Kernel E at the shapes where the paths decode wirec bytes (kernel
+    A's wirec reader's launches), through `timed` (as launched and on the
+    card alone, beside its bound and the parent's E): the serving flush
+    (E_FLUSH, the carried suffixes), feeder_path's chunk (CHUNK_W x E), the
+    main wirec corpus (the suites' W x E), and fuzz_scale's seven-profile
+    corpus (`fuzz`, as generate() makes it) packed whole, as fuzz_scale
+    packs it, and each profile's workflows packed alone and tiled to the
+    corpus's rows (the profiles differ in B and in their DELTA lanes).
+    Each corpus is held first: E's output equal to its plain version and
+    to the lanes (their padding rows as PAD_VALUES), also from a copy of
+    the slab at an odd byte offset, and kernel A on E's output equal to
+    A's fused wirec reader. Beside each, the card's time alone to fill a
+    tensor of the output's size and to copy the output into it. Returns
+    {shape: its slab's B, K and DELTA lanes, and those two times}."""
+    import numpy as np
+    import torch
+
+    from cadence_tpu_torch.core.checksum import DEFAULT_LAYOUT as L
+    from cadence_tpu_torch.gen.fuzz import PROFILES
+    from cadence_tpu_torch.native import wirec as NW
+    from cadence_tpu_torch.ops import replay as R, wirec as WC
+    from cadence_tpu_torch.ops.encode import LANE_EVENT_ID, assemble_corpus
+    from cadence_tpu_torch.ops.state import init_state
+
+    W_all, E_all = events_np.shape[:2]
+    idx = np.linspace(0, W_all - 1, E_FLUSH[0]).astype(np.int64)
+    corpora = [(f"{E_FLUSH[0]}x{E_FLUSH[1]} carried",
+                carried_split(events_np, idx, E_FLUSH[1])[1], 1),
+               (f"{CHUNK_W}x{E_all}", events_np[:CHUNK_W], 1),
+               (f"{W_all}x{E_all}", events_np, 1)]
+    if fuzz:
+        lanes = assemble_corpus([x for p in PROFILES for x in fuzz[p][1]])
+        tag = f"{lanes.shape[0]}x{lanes.shape[1]}"
+        corpora.append((f"fuzz_scale {tag}", lanes, 1))
+        first = 0
+        for p in PROFILES:
+            n = len(fuzz[p][1])
+            if lanes.shape[0] % n:
+                fail(f"decode_shapes: fuzz:{p}'s {n} workflows do not tile {lanes.shape[0]}")
+            corpora.append((f"fuzz:{p} {tag}", lanes[first:first + n], lanes.shape[0] // n))
+            first += n
+    pad = torch.tensor(WC.PAD_VALUES, dtype=torch.int64, device=dev)
+    out = {}
+    for key, lanes, reps in corpora:
+        wc = NW.pack_wirec_auto(lanes)
+        prof = wc.profile
+        slab, bases, n_ev = (t.repeat((reps,) + (1,) * (t.dim() - 1))
+                             for t in NW.stage_corpus(wc, dev))
+        want = torch.from_numpy(np.ascontiguousarray(lanes)).to(dev).repeat(reps, 1, 1)
+        want[want[:, :, LANE_EVENT_ID] == 0] = pad
+        plain = WC.decode_wirec_plain(slab, bases, n_ev, prof)
+        got = WC.decode_wirec(slab, bases, n_ev, prof, device=dev)
+        if not torch.equal(plain, want):
+            fail(f"decode_wirec {key}: the plain version differs from the lanes")
+        flat = torch.empty(slab.numel() + 1, dtype=torch.uint8, device=dev)
+        odd = flat[1:].view(slab.shape)
+        odd.copy_(slab)
+        if odd.data_ptr() % 2 != 1:
+            fail(f"decode_wirec {key}: the slab copy is not at an odd address")
+        if not torch.equal(WC.decode_wirec(odd, bases, n_ev, prof, device=dev), got):
+            fail(f"decode_wirec {key}: the kernel differs on a slab at an odd byte offset")
+        del flat, odd, want
+        W = slab.shape[0]
+        states_equal(R.replay_scan(init_state(W, L, dev), got),
+                     R.wirec_scan(init_state(W, L, dev), slab, bases, n_ev, prof),
+                     f"decode_wirec {key}: kernel A on kernel E's output against the fused reader")
+        del got
+        nbytes = (slab.numel() + bases.numel() * 8 + n_ev.numel() * 4
+                  + plain.numel() * plain.element_size())
+        timed(f"decode_wirec {key}", "decode_wirec",
+              lambda slab=slab, bases=bases, n_ev=n_ev, prof=prof: kept(
+                  *WC.decode_launch(slab, bases, n_ev, prof)),
+              nbytes, decode_ops(prof, slab.shape[0] * slab.shape[1]), check=(plain,))
+        # the card's rate for the output's bytes alone: written once, and
+        # read and written once
+        blank = torch.empty_like(plain)
+        out[key] = {"slab_bytes_per_row": int(slab.shape[2]), "bases": int(bases.shape[1]),
+                    "delta_lanes": sum(e.kind == WC.KIND_DELTA for e in prof),
+                    "output_fill_device_ms": cuda_ms(lambda _: blank.fill_(7), behind=True),
+                    "output_copy_device_ms": cuda_ms(lambda _: blank.copy_(plain), behind=True)}
+        del slab, bases, n_ev, plain, blank
+        torch.cuda.empty_cache()
+    emit("decode_shapes", **out)
     return out
 
 
@@ -3371,6 +3476,36 @@ VARIANTS = {
          "    gen::act_all(g, d, ev_id, code, a);\n    switch (code) {\n"),
         *(("replay_gen.cuh", f"        gen::act_all(g, d, ev_id, gen::{c}, a);\n", "")
           for c in GEN_ACTIONS))),
+    **{f"e_stages{n}": (("wirec.cu",), (("wirec.cu", "constexpr int E_STAGES = 3;",
+                                         f"constexpr int E_STAGES = {n};"),))
+       for n in (2, 4)},
+    "e_warps4": (("wirec.cu",), (("wirec.cu", "constexpr int E_WARPS = 8;",
+                                  "constexpr int E_WARPS = 4;"),
+                                 ("wirec.cu", "constexpr int E_BLOCKS_PER_SM = 4;",
+                                  "constexpr int E_BLOCKS_PER_SM = 8;"))),
+    # a persistent grid of one wave (E_BLOCKS_PER_SM blocks an SM), each warp
+    # decoding the workflows warp, warp + warps, ... in turn
+    "e_one_wave": (("wirec.cu",), (
+        ("wirec.cu", "  decode_warp(a, p, e_smem + warp * warp_bytes(a.B, a.K), "
+                     "int64_t(blockIdx.x) * E_WARPS + warp,\n",
+         "  for (int64_t w = int64_t(blockIdx.x) * E_WARPS + warp; w < a.W;\n"
+         "       w += int64_t(gridDim.x) * E_WARPS)\n"
+         "    decode_warp(a, p, e_smem + warp * warp_bytes(a.B, a.K), w,\n"),
+        ("wirec.cu", "  decode_wirec_kernel<<<static_cast<unsigned>(grid_blocks(W)),",
+         "  int sms = 0;\n"
+         "  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != "
+         "cudaSuccess)\n    return static_cast<int>(rc);\n"
+         "  const int64_t wave = int64_t(sms) * E_BLOCKS_PER_SM;\n"
+         "  decode_wirec_kernel<<<static_cast<unsigned>(grid_blocks(W) < wave ? grid_blocks(W) "
+         ": wave),"))),
+    # each lane stores its own row's 16-byte pairs to device memory, 144 B
+    # from its neighbour's, with no tile in shared memory
+    "e_direct_stores": (("wirec.cu",), (
+        ("wirec.cu", "      *reinterpret_cast<longlong2*>(tile + size_t(lane) * E_ROW_BYTES "
+                     "+ 8 * (j - 1)) =\n          make_longlong2(lo, v);",
+         "      __stcs(reinterpret_cast<longlong2*>(a.out + (c.w * a.E + c.r0 + lane) * "
+         "WIREC_LANES + (j - 1)), make_longlong2(lo, v));"),
+        ("wirec.cu", "    store_chunk(a, c, tile, lane);\n", ""))),
 }
 #: kernel A's instances, by reader, tasks and route (mangled-name parts
 #: for ptxas_usage)
@@ -3415,8 +3550,8 @@ def gen_ptxas(build_log: str) -> dict:
     return {f"tpw{t}": ptxas_usage(build_log, f"replay_gen_kernelILi{t}E") for t in (1, 2)}
 
 
-def launch_shapes_phase(args, events_np, dev) -> dict:
-    """Build the parent commit's kernels A, B, G and I (with --parent) and
+def launch_shapes_phase(args, events_np, dev, fuzz=None) -> dict:
+    """Build the parent commit's kernels A, B, E, G and I (with --parent) and
     this tree's VARIANTS (with --variants), run launch_shapes, emit its
     record and return it (attach_launch_shapes adds its times to the
     kernels' records)."""
@@ -3443,7 +3578,7 @@ def launch_shapes_phase(args, events_np, dev) -> dict:
                     if "registers" in line or "spill" in line}
              for b, (_, log) in zip(builds, built)}
     t_build = time.perf_counter() - t0
-    out = launch_shapes(events_np, dev, args.ns_events, libs)
+    out = launch_shapes(events_np, dev, args.ns_events, libs, fuzz)
     emit("kernel_launch_shapes", floor_ms=out["floor_ms"], floor_device_ms=out["floor_device_ms"],
          built=[b[0] for b in builds],
          build_seconds=t_build, ptxas={n: sorted(v) for n, v in ptxas.items()},
@@ -3454,12 +3589,16 @@ def launch_shapes_phase(args, events_np, dev) -> dict:
          ptxas_replay_gen=gen_ptxas(_build.build_log),
          ptxas_kernels_j_l=jl_ptxas(_build.build_log),
          ptxas_kernels_c_d=cd_ptxas(_build.build_log),
+         ptxas_kernel_e=ptxas_usage(_build.build_log, "decode_wirec_kernel"),
+         ptxas_parent_e={b[0]: ptxas_usage(log, "decode_wirec_kernel")
+                         for b, (_, log) in zip(builds, built) if b[0] == "parent"},
          ptxas_parent_j_l={b[0]: jl_ptxas(log) for b, (_, log) in zip(builds, built)
                            if b[0] == "parent"},
          ptxas_variants={b[0]: {**a_ptxas(log), "rehome": ptxas_usage(log, "rehome_kernel"),
                                 "gen_lanes": ptxas_usage(log, "gen_lanes_kernel"),
                                 "replay_gen": gen_ptxas(log), **jl_ptxas(log),
-                                **cd_ptxas(log)}
+                                **cd_ptxas(log),
+                                "decode_wirec": ptxas_usage(log, "decode_wirec_kernel")}
                          for b, (_, log) in zip(builds, built) if b[0] != "parent"},
          ptxas_parent_c_d={b[0]: cd_ptxas(log) for b, (_, log) in zip(builds, built)
                            if b[0] == "parent"})
@@ -4170,9 +4309,9 @@ def main() -> int:
                    help="run every phase at a few thousand workflows")
     p.add_argument("--parent", metavar="DIR",
                    help="the root of a checkout of another commit whose entry points have this "
-                        "tree's signatures: its kernels A, B, G, I, A's generator reader, J and "
-                        "L are built and timed beside this tree's in kernel_launch_shapes, and "
-                        "J, K and L in kernel_vis")
+                        "tree's signatures: its kernels A, B, C, D, E, G, I, A's generator "
+                        "reader, J and L are built and timed beside this tree's in "
+                        "kernel_launch_shapes, and J, K and L in kernel_vis")
     p.add_argument("--variants", nargs="?", const="all", metavar="NAME,...",
                    help="build VARIANTS of this tree's kernels (all, or the names given) and "
                         "time them beside the port's in kernel_launch_shapes")
@@ -4255,7 +4394,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             print("ptxas:", line.strip(), flush=True)
     if args.shapes_only:
-        launch_shapes_phase(args, encode_corpus(histories), dev)
+        launch_shapes_phase(args, encode_corpus(histories), dev, corp["fuzz"])
         replay_traps(dev)
         print(smi)
         return 0
@@ -4676,13 +4815,14 @@ def main() -> int:
     records.append(kernel_record(
         "decode_wirec", "cadence_tpu_torch/csrc/wirec.cu", "cadence_tpu/ops/wirec.py:355",
         None, err_e, ms_e, ms_ep, wirec_in + d_k.numel() * 8, decode_ops(prof, W * E),
-        on_main_path=False))
+        on_main_path=False, ptxas=ptxas_usage(_build.build_log, "decode_wirec_kernel"),
+        library="none: no PyTorch call decodes wirec"))
     emit("kernel_decode_wirec", max_abs_err=err_e, equal_to_lanes=True, ms=ms_e, plain_ms=ms_ep)
     del s_k, s_p, s_k32, s_kw, wide, ev, ev32, d_k, slab_d, bases_d, n_d
     torch.cuda.empty_cache()
 
     # kernels A and B at the shapes their launches have, and on their traps
-    shapes_out = launch_shapes_phase(args, events_np, dev)
+    shapes_out = launch_shapes_phase(args, events_np, dev, corp["fuzz"])
     replay_traps(dev)
 
     # kernel I and kernel A's generator reader

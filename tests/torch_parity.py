@@ -217,12 +217,14 @@ def reference_native() -> None:
 #: plain updates). cp.async (cuda_pipeline.h's primitives) queues each
 #: thread's copies in groups and makes them at __pipeline_wait_prior, so a
 #: stage read before its wait holds the old bytes, as on the card.
-#: __shfl_xor_sync works over a simulated warp: host_warp(fn) runs fn(lane)
-#: for 32 lanes as threads that meet at each shuffle. A ballot has no
-#: stand-in: a harness makes a warp's ballot itself.
+#: __shfl_xor_sync and __shfl_up_sync work over a simulated warp:
+#: host_warp(fn) runs fn(lane) for 32 lanes as threads that meet at each
+#: shuffle and at each __syncwarp (the lanes find their cp.async queues
+#: under a lock). A ballot has no stand-in: a harness makes a warp's ballot
+#: itself.
 HOST_CUDA_RUNTIME = r"""
 #pragma once
-#include <condition_variable>
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <climits>
@@ -285,7 +287,11 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 struct HostCopy { void* dst; const void* src; size_t n, zfill; };
 struct HostPipe { std::vector<HostCopy> open; std::vector<std::vector<HostCopy>> groups; };
 inline std::map<std::pair<unsigned, unsigned>, HostPipe> host_pipes;  // by (block, thread)
-inline HostPipe& host_pipe() { return host_pipes[{blockIdx.x, threadIdx.x}]; }
+inline std::mutex host_pipes_mutex;  // a warp's lanes, run as threads, find their pipes at once
+inline HostPipe& host_pipe() {
+  std::lock_guard<std::mutex> lock(host_pipes_mutex);
+  return host_pipes[{blockIdx.x, threadIdx.x}];
+}
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size, size_t zfill = 0) {
   host_pipe().open.push_back({dst, src, size, zfill});
 }
@@ -304,25 +310,24 @@ inline void __pipeline_wait_prior(size_t prior) {
     p.groups.erase(p.groups.begin());
   }
 }
+// The warp's barrier: the 32nd lane to arrive opens the next generation;
+// the others yield until it has (a condition variable's wake of 31
+// threads costs a kernel's host test tens of seconds).
 struct HostWarp {
-  std::mutex m;
-  std::condition_variable cv;
-  int arrived = 0;
-  unsigned long long generation = 0;
+  std::atomic<int> arrived{0};
+  std::atomic<unsigned long long> generation{0};
   unsigned long long value[32];
 };
 inline HostWarp* host_warp_now = nullptr;
 inline thread_local int host_lane = 0;
 inline void host_warp_meet() {
   HostWarp& w = *host_warp_now;
-  std::unique_lock<std::mutex> lock(w.m);
-  const unsigned long long g = w.generation;
-  if (++w.arrived == 32) {
-    w.arrived = 0;
-    ++w.generation;
-    w.cv.notify_all();
+  const unsigned long long g = w.generation.load(std::memory_order_acquire);
+  if (w.arrived.fetch_add(1, std::memory_order_acq_rel) == 31) {
+    w.arrived.store(0, std::memory_order_relaxed);
+    w.generation.store(g + 1, std::memory_order_release);
   } else {
-    w.cv.wait(lock, [&] { return w.generation != g; });
+    while (w.generation.load(std::memory_order_acquire) == g) std::this_thread::yield();
   }
 }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int lane_mask, int = 32) {
@@ -334,6 +339,19 @@ template <class T> inline T __shfl_xor_sync(unsigned, T v, int lane_mask, int = 
   host_warp_meet();
   return r;
 }
+// A lane takes lane - delta's value, and keeps its own below delta.
+template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned delta, int = 32) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
+  std::memcpy(&host_warp_now->value[host_lane], &v, sizeof(T));
+  host_warp_meet();
+  T r = v;
+  if (host_lane >= static_cast<int>(delta))
+    std::memcpy(&r, &host_warp_now->value[host_lane - delta], sizeof(T));
+  host_warp_meet();
+  return r;
+}
+// Every lane waits for the warp; what a lane wrote before is seen after.
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { host_warp_meet(); }
 template <class F> inline void host_warp(F fn) {
   HostWarp w;
   host_warp_now = &w;
