@@ -1,19 +1,22 @@
-"""Counters, timers, gauges and histograms behind (scope, name) keys: the
-part of the JAX package's utils/metrics.py that the port's device layers
-write to (the escalation ladder, the native wirec dispatcher, the bulk
-executor, the device rebuilder, the replay engine, the pack cache, the
-resident pool, the serving scheduler, the snapshot tier, the device
-visibility view, the replay profiler, shard migration and the replication
-pump), under the same scope and metric names.
+"""Counters, timers, gauges and histograms behind (scope, name) keys, under
+the JAX package's scope and metric names: the device layers (the
+escalation ladder, the native wirec dispatcher, the bulk executor, the
+device rebuilder, the replay engine, the pack cache, the resident pool,
+the serving scheduler, the snapshot tier, the device visibility view, the
+replay profiler, shard migration and the replication pump) and the host
+control plane (frontend, history engine, matching, the queues, the system
+workers, quotas and the telemetry plane).
 
 Histograms are fixed-bucket (prometheus `le` semantics) with interpolated
-percentiles, as in the JAX package; the Prometheus text exposition of the
-full registry stays with the host control plane, which the port has not
-taken over yet. Thread-safe; scopes are cheap handles over the registry.
+percentiles, as in the JAX package. Two emitter seams: snapshot() (the
+structured dump) and to_prometheus() (text exposition format 0.0.4, served
+by the /metrics surface in utils/scrape.py). Thread-safe; scopes are cheap
+handles over the registry.
 """
 from __future__ import annotations
 
 import bisect
+import re
 import threading
 import time
 from contextlib import contextmanager
@@ -62,6 +65,76 @@ SCOPE_REPLICATION = "replication.task-processor"
 #: losing host and hydrates them on the gaining host; counters below
 #: under M_MIG_*
 SCOPE_TPU_MIGRATION = "tpu.migration"
+#: the host control plane (engine/history_engine.py, frontend.py,
+#: matching.py, queues.py, workers.py; metrics/defs.go analog)
+SCOPE_HISTORY_START_WORKFLOW = "history.start-workflow-execution"
+SCOPE_HISTORY_DECISION_COMPLETED = "history.respond-decision-task-completed"
+SCOPE_HISTORY_ACTIVITY_RESPOND = "history.respond-activity-task"
+SCOPE_HISTORY_SIGNAL = "history.signal-workflow-execution"
+SCOPE_HISTORY_RESET = "history.reset-workflow-execution"
+SCOPE_FRONTEND_START = "frontend.start-workflow-execution"
+SCOPE_FRONTEND_SIGNAL = "frontend.signal-workflow-execution"
+SCOPE_QUEUE_TRANSFER = "queue.transfer"
+SCOPE_QUEUE_TIMER = "queue.timer"
+SCOPE_WORKER_RETENTION = "worker.retention"
+SCOPE_WORKER_SCAVENGER = "worker.scavenger"
+SCOPE_WORKER_SCANNER = "worker.scanner"
+SCOPE_HISTORY_RECORD_STARTED = "history.record-decision-task-started"
+SCOPE_FRONTEND_POLL_DECISION = "frontend.poll-for-decision-task"
+SCOPE_FRONTEND_RESET = "frontend.reset-workflow-execution"
+SCOPE_FRONTEND_QUERY = "frontend.query-workflow"
+SCOPE_FRONTEND_READ = "frontend.read"
+SCOPE_MATCHING_POLL_DECISION = "matching.poll-decision-task"
+SCOPE_MATCHING_ADD_DECISION = "matching.add-decision-task"
+#: the admission-control seat (utils/quotas.py): every frontend API charged
+#: against the multi-stage limiter counts here, `admitted`/`shed` totals
+#: plus per-domain series (domain_metric)
+SCOPE_QUOTAS = "quotas"
+#: the load generator's scopes ride "loadgen.<op-kind>"
+SCOPE_LOADGEN_PREFIX = "loadgen"
+#: host-runtime attribution (utils/hostprof.py HostProfiler): per-subsystem
+#: wall/CPU shares, the GIL-contention estimate and the attributed-share gate
+SCOPE_HOSTPROF = "host.prof"
+#: ring-buffer sampler health (utils/timeseries.py TimeSeriesSampler)
+SCOPE_TIMESERIES = "timeseries"
+#: flight-recorder ring (utils/flightrecorder.py): events recorded and dumps
+SCOPE_FLIGHTREC = "flightrec"
+#: SLO burn rates over the ring-buffer windows
+SCOPE_SLO = "slo"
+#: hashring membership as observed by one host: drop/join counters and the
+#: ring-generation gauge
+SCOPE_MEMBERSHIP = "membership"
+#: shard controller (engine/controller.py): fenced-engine evictions
+SCOPE_CONTROLLER = "controller"
+
+M_REQUESTS = "requests"
+M_ERRORS = "errors"
+M_TASKS_PROCESSED = "tasks-processed"
+M_TASKS_DROPPED_NOT_EXISTS = "tasks-dropped-entity-not-exists"
+#: executor dropped a task whose workflow a peer cluster's promotion
+#: already owns (version arbitration rejected the local mutation)
+M_TASKS_DROPPED_STALE = "tasks-dropped-stale-version"
+#: domain-metadata failover-version arbitration: applied mutations, stale
+#: ones rejected, duplicate replays at the same failover version
+M_DOMREPL_APPLIED = "domain-applied"
+M_DOMREPL_STALE_REJECTED = "domain-stale-rejected"
+M_DOMREPL_DUPLICATE = "domain-duplicate"
+#: membership-flap witnesses (SCOPE_MEMBERSHIP)
+M_RING_DROPS = "ring-drops"
+M_RING_JOINS = "ring-joins"
+M_RING_GENERATION = "ring-generation"
+#: fenced-engine evictions (SCOPE_CONTROLLER)
+M_FENCED_EVICTIONS = "fenced-evictions"
+M_BUFFERED_FLUSHED = "buffered-events-flushed"
+M_RATE_LIMITED = "requests-rate-limited"
+M_RUNS_DELETED = "runs-deleted"
+M_RUNS_ARCHIVED = "runs-archived"
+M_EXECUTIONS_SCANNED = "executions-scanned"
+M_INVARIANT_VIOLATIONS = "invariant-violations"
+#: admission-control counters (SCOPE_QUOTAS): requests the multi-stage
+#: limiter admitted vs shed (typed ServiceBusyError with retry-after)
+M_QUOTA_ADMITTED = "admitted"
+M_QUOTA_SHED = "shed"
 
 M_LATENCY = "latency"
 M_KERNEL_LAUNCHES = "kernel-launches"
@@ -279,6 +352,13 @@ def device_metric(name: str, device: int) -> str:
     return f"{name}-dev{device}"
 
 
+def domain_metric(name: str, domain: str) -> str:
+    """Per-domain series name: shed-domain-hot, latency-domain-payments,
+    ...: the domain label rides the flat (scope, name) key like
+    device_metric's device label (to_prometheus sanitizes it)."""
+    return f"{name}-domain-{domain}"
+
+
 #: latency buckets (seconds): sub-millisecond paths through multi-second
 #: device work
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -306,6 +386,16 @@ class HistogramStat:
         self.count += 1
         self.total += value
         self.bucket_counts[bisect.bisect_left(self.bounds, value)] += 1
+
+    def cumulative(self) -> List[Tuple[str, int]]:
+        """[(le_label, cumulative_count)] ending with ("+Inf", count)."""
+        out: List[Tuple[str, int]] = []
+        running = 0
+        for bound, n in zip(self.bounds, self.bucket_counts):
+            running += n
+            out.append((str(bound), running))
+        out.append(("+Inf", self.count))
+        return out
 
     def percentile(self, q: float) -> float:
         """q in [0, 1]; linear interpolation inside the covering bucket.
@@ -392,6 +482,11 @@ class MetricsRegistry:
         with self._lock:
             return self._histograms.get((scope, name), HistogramStat())
 
+    def percentiles(self, scope: str, name: str,
+                    qs: Sequence[float] = (0.5, 0.95, 0.99)) -> Dict[str, float]:
+        hist = self.histogram(scope, name)
+        return {f"p{round(q * 100):d}": hist.percentile(q) for q in qs}
+
     def reset(self) -> None:
         """Drop every series (components hold the registry by reference,
         so clearing in place reaches them all)."""
@@ -400,6 +495,20 @@ class MetricsRegistry:
             self._timers.clear()
             self._gauges.clear()
             self._histograms.clear()
+
+    def raw_series(self) -> Tuple[Dict, Dict, Dict]:
+        """A point-in-time copy of every series, taken under one lock hold:
+        (counters, gauges, histograms), each histogram as (count, total,
+        bounds, bucket_counts tuple). The time-series sampler and the
+        Prometheus renderer both read it, so a concurrent observe() or
+        reset() never yields a half-updated view."""
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            histograms = {
+                k: (h.count, h.total, h.bounds, tuple(h.bucket_counts))
+                for k, h in self._histograms.items()}
+        return counters, gauges, histograms
 
     def snapshot(self) -> Dict[str, Dict[str, object]]:
         """Every series grouped by scope: a timer as name.count, .total_s
@@ -423,6 +532,52 @@ class MetricsRegistry:
             for (scope, name), v in self._gauges.items():
                 out.setdefault(scope, {})[name] = v
         return out
+
+    def to_prometheus(self, prefix: str = "cadence") -> str:
+        """Every series in Prometheus text format 0.0.4. The scope is a
+        label, the metric name is sanitized into the grammar: counters get
+        `_total`, histograms emit `_bucket`/`_sum`/`_count` with `le`
+        labels. Renders from raw_series()'s copy, so a histogram's +Inf
+        bucket always agrees with its own count."""
+        counters, gauges, histograms = self.raw_series()
+
+        def metric_name(name: str) -> str:
+            return prefix + "_" + re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+        def fmt(value: float) -> str:
+            return str(int(value)) if float(value).is_integer() else str(value)
+
+        lines: List[str] = []
+        typed: set = set()
+
+        def header(mname: str, kind: str) -> None:
+            if mname not in typed:
+                typed.add(mname)
+                lines.append(f"# TYPE {mname} {kind}")
+
+        def by_family(items):
+            # all samples of one metric family must be contiguous
+            return sorted(items, key=lambda kv: (kv[0][1], kv[0][0]))
+
+        for (scope, name), v in by_family(counters.items()):
+            mname = metric_name(name) + "_total"
+            header(mname, "counter")
+            lines.append(f'{mname}{{scope="{scope}"}} {v}')
+        for (scope, name), v in by_family(gauges.items()):
+            mname = metric_name(name)
+            header(mname, "gauge")
+            lines.append(f'{mname}{{scope="{scope}"}} {fmt(v)}')
+        for (scope, name), (count, total, bounds, buckets) in by_family(histograms.items()):
+            mname = metric_name(name)
+            header(mname, "histogram")
+            running = 0
+            for bound, n in zip(bounds, buckets):
+                running += n
+                lines.append(f'{mname}_bucket{{scope="{scope}",le="{bound}"}} {running}')
+            lines.append(f'{mname}_bucket{{scope="{scope}",le="+Inf"}} {count}')
+            lines.append(f'{mname}_sum{{scope="{scope}"}} {fmt(round(total, 9))}')
+            lines.append(f'{mname}_count{{scope="{scope}"}} {count}')
+        return "\n".join(lines) + ("\n" if lines else "")
 
 
 class Scope:

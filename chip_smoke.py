@@ -10,6 +10,7 @@
                                      # and visibility_path
     python3 chip_smoke.py --new-phases-only  # their corpora, the build, fuzz_parity,
                                      # migration_path and replication_apply
+    python3 chip_smoke.py --onebox-only  # the build and onebox_path
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
                                      # checkout's kernels A, B, C, D, E, G, H, I,
                                      # J, K, L and A's generator reader (and
@@ -178,8 +179,9 @@ Phases, one JSON line each:
      escalate_resident), `divergent` empty, `escalated` and `fallback`
      exactly verify_path's; (c) verify_path's 64 alterations, and
      `divergent` must be exactly them, kernel A launched for the keys that
-     are not resident only; (d) snapshot_sweep(force=True) and a fresh
-     engine on the same stores, whose verify_all must hydrate exactly the
+     are not resident only; (d) snapshot_sweep(force=True) over every
+     fourth resident key (RESIDENT_SWEEP_EVERY) and a fresh engine on the
+     same stores, whose verify_all must hydrate exactly the
      keys written and give (c)'s divergent and fallback lists (escalated:
      (c)'s plus the overflowing keys (c) served that the sweep did not
      write: widened entries, altered live states).
@@ -219,6 +221,27 @@ Phases, one JSON line each:
      every J, K and L launch of the run (launch_shapes). With --parent, the
      parent's J (count and bitmap), K (k = 1, 101, 128, 4,096) and L are
      held equal and timed beside this tree's in kernel_vis.
+  9a. onebox_path, configuration onebox-2k (run after serving_path): the
+     port's Onebox(num_hosts=2, num_shards=8, device="cuda") with its
+     serving tier on and the device visibility tier off, one domain and
+     task list. 2,048 workflows started through the frontend before any
+     poll, tests/test_onebox.py's seven decider kinds in turn (echo,
+     chained activities x5, signal x3, timer of 5 s, 4 concurrent
+     activities, a child workflow, cancellation), drained by
+     tests/taskpoller.py's loop (OneboxPoller); the signals and cancel
+     requests through the frontend and the clock advanced 6 s, drained
+     again; then 64 closed chained workflows reset to the close of their
+     third decision (frontend.reset_workflow_execution) and drained to
+     completion. Every workflow must close with its decider's status, the
+     serving queue settle with 0 parity divergence and 0 busy rejections,
+     each execution's last ticket resolve ok and parity_ok, the 64 resets
+     rebuild on the card (DeviceRebuilder, none by the oracle), and
+     box.scanner.run_once() and a restarted host's scan (a fresh engine
+     over the same stores, the keys no snapshot covers cold) each verify
+     every execution with history on the device with 0 divergent. Prints
+     the wall, workflows/s and events/s, each frontend call kind's p50
+     and p99, the serving transactions, flushes and launch shapes, the
+     scans' walls and the launches by kernel.
   9b. fuzz_parity: (a) gen/fuzz.parity_run(device="cuda") at its defaults
      (50 seeds x 4 workflows, target_events 100, 2 NDC forks a seed pair):
      dense replay_corpus against the oracle, wirec replay_wirec_to_crc
@@ -256,8 +279,8 @@ Phases, one JSON line each:
      CADENCE_TPU_REPL_DEVICE=0 launches no kernel.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
-rebuild_path, verify_path, resident_path, serving_path, fuzz_parity's two
-legs, migration_path, replication_apply, visibility_path)
+rebuild_path, verify_path, resident_path, serving_path, onebox_path,
+fuzz_parity's two legs, migration_path, replication_apply, visibility_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched, or if it launched
 kernel H or F (FOLDED_KERNELS: the paths take their results from kernel
@@ -413,6 +436,33 @@ REPL_EVENTS = 40
 REPL_SHIPPED = 256
 REPL_KILL_SWITCH = 512
 REPLICATION_APPLY_KERNELS = ("replay", "payload", "rehome")
+#: resident_path (d) snapshots every fourth resident key (the sweep's depth,
+#: cut for the script's time limit: the whole pool took 70.7-118.4 s)
+RESIDENT_SWEEP_EVERY = 4
+#: onebox_path, configuration onebox-2k: the JAX package's default cluster
+#: (2 history hosts, 8 shards), one domain and task list, 2,048 workflows of
+#: tests/test_onebox.py's seven decider kinds in turn, then 64 resets of
+#: closed chained workflows; the serving tier on, device visibility off
+ONEBOX_WORKFLOWS = 2048
+ONEBOX_RESETS = 64
+ONEBOX_HOSTS = 2
+ONEBOX_SHARDS = 8
+ONEBOX_DOMAIN = "onebox-domain"
+ONEBOX_TASK_LIST = "onebox-tl"
+ONEBOX_KINDS = ("echo", "chain", "signal", "timer", "conc", "child", "cancel")
+ONEBOX_SIGNALS = 3
+ONEBOX_CHAIN = 5
+ONEBOX_TIMER_S = 5
+#: the chained workflows reset to the close of their third decision
+ONEBOX_RESET_DECISION = 3
+#: the serving flush (G, A from the carried state, B), the reset rebuilder
+#: (A's TASKS variant, B) and the restarted scan's verify_all (A, B with the
+#: counts, D) on the keys no snapshot covers. Not B's fit epilogue: it runs
+#: only where a resident append overflows the base layout, and the history
+#: engine hands the tier no state past it (payload_row raises, the hand-off
+#: is skipped), so no Onebox transaction reaches it
+ONEBOX_PATH_KERNELS = ("replay", "replay_tasks", "payload", "payload_counts", "verify_rows",
+                       "rehome")
 
 
 _T0 = time.perf_counter()
@@ -1337,9 +1387,11 @@ def resident_path(args, corp, ctx):
     if engine.resident.host_rows:
         fail(f"resident_path (a)-(c): {engine.resident.host_rows} rows admitted through the host")
 
-    # (d) sweep, then a fresh engine on the same stores
+    # (d) sweep every RESIDENT_SWEEP_EVERY-th resident key, then a fresh
+    # engine on the same stores
     t0 = time.perf_counter()
-    report = engine.snapshot_sweep(force=True)
+    report = engine.snapshot_sweep(keys=sorted(engine.resident.keys())[::RESIDENT_SWEEP_EVERY],
+                                   force=True)
     t_sweep = time.perf_counter() - t0
     fresh = TPUReplayEngine(stores, chunk_workflows=4096)
     engine = fresh
@@ -1365,6 +1417,47 @@ def resident_path(args, corp, ctx):
     check_launches(launches, "resident_path", RESIDENT_PATH_KERNELS)
     emit("resident_path", workflows=len(keys), steps=steps, launches=launches)
     return launches
+
+
+def p50_p99_ms(seconds) -> dict:
+    """The p50 and p99 of a list of seconds, in ms (the sample at or above
+    each rank)."""
+    xs = sorted(seconds)
+    at = lambda q: xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 if xs else 0.0  # noqa: E731
+    return {"p50": at(0.5), "p99": at(0.99)}
+
+
+def shape_counts(shapes) -> dict:
+    """A Counter of (W, E) launch shapes as {"WxE": launches}."""
+    return {f"{w}x{e}": n for (w, e), n in sorted(shapes.items())}
+
+
+def instrument_serving(engine, sched):
+    """Wrap the serving flush and the launches it makes: returns the lists
+    the run fills, (each flush's seconds and transactions), the suffix
+    appends' launch shapes (W, E) and the cold admits' padded (Wp, E)."""
+    flushes = []
+    append_shapes, cold_shapes = collections.Counter(), collections.Counter()
+    flush, cold_launch = sched._flush, sched._cold_launch
+    append_report = engine.resident.replay_append_report
+
+    def timed_flush(batch):
+        t0 = time.perf_counter()
+        flush(batch)
+        flushes.append((time.perf_counter() - t0, sum(1 + i.coalesced for i in batch)))
+
+    def counted_append(*a, **k):
+        results, report = append_report(*a, **k)
+        append_shapes.update(report.chunk_shapes)
+        return results, report
+
+    def counted_cold(corpus, device):
+        cold_shapes[tuple(corpus.shape[:2])] += 1
+        return cold_launch(corpus, device)
+
+    sched._flush, sched._cold_launch = timed_flush, counted_cold
+    engine.resident.replay_append_report = counted_append
+    return flushes, append_shapes, cold_shapes
 
 
 def serving_path(args, corp):
@@ -1397,31 +1490,7 @@ def serving_path(args, corp):
     M.DEFAULT_REGISTRY.reset()
     engine = TPUReplayEngine(stores)
     sched = engine.serving_scheduler()
-    flushes = []
-    flush = sched._flush
-
-    def timed_flush(batch):
-        t0 = time.perf_counter()
-        flush(batch)
-        flushes.append((time.perf_counter() - t0, sum(1 + i.coalesced for i in batch)))
-
-    sched._flush = timed_flush
-    # the shapes kernels A and B are launched with: each suffix flush's
-    # append groups (W, E) and each cold admit's padded corpus (Wp, E)
-    append_shapes, cold_shapes = collections.Counter(), collections.Counter()
-    append_report, cold_launch = engine.resident.replay_append_report, sched._cold_launch
-
-    def counted_append(*a, **k):
-        results, report = append_report(*a, **k)
-        append_shapes.update(report.chunk_shapes)
-        return results, report
-
-    def counted_cold(corpus, device):
-        cold_shapes[tuple(corpus.shape[:2])] += 1
-        return cold_launch(corpus, device)
-
-    engine.resident.replay_append_report = counted_append
-    sched._cold_launch = counted_cold
+    flushes, append_shapes, cold_shapes = instrument_serving(engine, sched)
     tickets = [[] for _ in keys]
     #: the expected row and branch of each workflow's last submitted
     #: transaction
@@ -1500,17 +1569,15 @@ def serving_path(args, corp):
     if wrong:
         fail(f"serving_path: {len(wrong)} resident entries differ from the oracle's final row")
     check_launches(launches, "serving_path", SERVING_PATH_KERNELS)
-    waits = sorted(r.queue_wait_s for r in results)
-    fl = sorted(d for d, _ in flushes)
-    pct = lambda xs, q: xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0  # noqa: E731
+    waits = [r.queue_wait_s for r in results]
+    fl = [d for d, _ in flushes]
     emit("serving_path", workflows=len(keys), threads=SERVING_THREADS, transactions=n_txns,
          unsubmitted=sum(len(w[2]) for w in work) - n_txns,
          seconds=t_serve, transactions_per_s=n_txns / t_serve, flushes=len(flushes),
          mean_flush_transactions=(sum(n for _, n in flushes) / len(flushes)) if flushes else 0,
          coalescing_factor=stats["coalescing_factor"],
          coalesced_appends=stats["coalesced_appends"],
-         queue_wait_ms={"p50": pct(waits, 0.5) * 1e3, "p99": pct(waits, 0.99) * 1e3},
-         flush_ms={"p50": pct(fl, 0.5) * 1e3, "p99": pct(fl, 0.99) * 1e3},
+         queue_wait_ms=p50_p99_ms(waits), flush_ms=p50_p99_ms(fl),
          batched_launches=stats["batched_launches"], cold_admits=stats["cold_admits"],
          suffix_appends=stats["suffix_appends"], exact_serves=stats["exact_serves"],
          requeued=stats["requeued"], bypassed=stats["bypassed"],
@@ -1518,8 +1585,266 @@ def serving_path(args, corp):
          not_ok=sum(not r.ok for r in results), parity_divergence=stats["parity_divergence"],
          resident_checked=len(resident), resident_pool=pool_stats(engine.resident),
          launches=launches,
-         append_shapes={f"{w}x{e}": n for (w, e), n in sorted(append_shapes.items())},
-         cold_shapes={f"{w}x{e}": n for (w, e), n in sorted(cold_shapes.items())})
+         append_shapes=shape_counts(append_shapes), cold_shapes=shape_counts(cold_shapes))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The Onebox: frontend, history engine, matching and queues, every committed
+# transaction handed to the serving tier on the card
+# ---------------------------------------------------------------------------
+
+def onebox_deciders(kind: str, wid: str):
+    """The decider of a workflow of `kind` (tests/test_onebox.py's seven),
+    with the child's for the parent kind, and its close status."""
+    from cadence_tpu_torch.core.enums import CloseStatus
+    from cadence_tpu_torch.models import deciders as DC
+
+    tl = ONEBOX_TASK_LIST
+    if kind == "echo":
+        return {wid: DC.EchoDecider(tl)}, CloseStatus.Completed
+    if kind == "chain":
+        return ({wid: DC.ChainedActivityDecider(tl, chain_length=ONEBOX_CHAIN)},
+                CloseStatus.Completed)
+    if kind == "signal":
+        return {wid: DC.SignalDecider(expected_signals=ONEBOX_SIGNALS)}, CloseStatus.Completed
+    if kind == "timer":
+        return {wid: DC.TimerDecider(fire_seconds=ONEBOX_TIMER_S)}, CloseStatus.Completed
+    if kind == "conc":
+        return {wid: DC.ConcurrentActivityDecider(tl, width=4)}, CloseStatus.Completed
+    if kind == "child":
+        return ({wid: DC.ChildWorkflowDecider(wid + "-c"), wid + "-c": DC.EchoDecider(tl)},
+                CloseStatus.Completed)
+    return {wid: DC.CancellationDecider(tl)}, CloseStatus.Canceled
+
+
+class OneboxPoller:
+    """tests/taskpoller.py's worker loop (poll a decision or an activity
+    task through the frontend and respond), timing each call pair by kind."""
+
+    def __init__(self, box, deciders) -> None:
+        self.box = box
+        self.deciders = deciders
+        self.calls = collections.defaultdict(list)
+
+    def timed(self, kind: str, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        self.calls[kind].append(time.perf_counter() - t0)
+        return out
+
+    def decide_once(self) -> bool:
+        fe = self.box.frontend
+        t0 = time.perf_counter()
+        resp = fe.poll_for_decision_task(ONEBOX_DOMAIN, ONEBOX_TASK_LIST)
+        if resp is None:
+            return False
+        decisions = self.deciders[resp.token.workflow_id].decide(resp.history)
+        fe.respond_decision_task_completed(resp.token, decisions)
+        self.calls["decision"].append(time.perf_counter() - t0)
+        return True
+
+    def activity_once(self) -> bool:
+        fe = self.box.frontend
+        t0 = time.perf_counter()
+        resp = fe.poll_for_activity_task(ONEBOX_DOMAIN, ONEBOX_TASK_LIST)
+        if resp is None:
+            return False
+        fe.respond_activity_task_completed(resp.token)
+        self.calls["activity"].append(time.perf_counter() - t0)
+        return True
+
+    def drain(self, max_rounds: int = 500) -> int:
+        for n in range(max_rounds):
+            progressed = self.box.pump_once() > 0
+            while self.decide_once():
+                progressed = True
+            while self.activity_once():
+                progressed = True
+            if not progressed and self.box.matching.backlog() == 0:
+                return n + 1
+        fail("onebox_path: the cluster did not drain")
+
+
+def onebox_run(workflows: int, resets: int, device) -> dict:
+    """configuration onebox-2k on `device`: the cluster, `workflows` started
+    before any poll, drained; the signals, cancel requests and the timer's
+    clock; `resets` closed chained workflows reset to a decision boundary
+    and drained again; the serving queue settled and the scanner run. Every
+    check of the run is made here; returns its figures."""
+    from cadence_tpu_torch.core.enums import EventType, WorkflowState
+    from cadence_tpu_torch.engine.onebox import Onebox
+
+    os.environ.pop("CADENCE_TPU_VISIBILITY", None)  # visibility_path covers that tier
+    t_start = time.perf_counter()
+    box = Onebox(num_hosts=ONEBOX_HOSTS, num_shards=ONEBOX_SHARDS, device=device)
+    sched = box.enable_serving()
+    # each workflow's last ticket, from the engines' hand-off
+    last_ticket, submit = {}, sched.submit
+
+    def recorded_submit(key, *a, **k):
+        ticket = submit(key, *a, **k)
+        last_ticket[key] = ticket
+        return ticket
+
+    sched.submit = recorded_submit
+    flushes, append_shapes, cold_shapes = instrument_serving(box.tpu, sched)
+    fe = box.frontend
+    fe.register_domain(ONEBOX_DOMAIN)
+    deciders, want, kinds = {}, {}, {}
+    for i in range(workflows):
+        kind = ONEBOX_KINDS[i % len(ONEBOX_KINDS)]
+        wid = f"ob-{kind}-{i}"
+        d, status = onebox_deciders(kind, wid)
+        deciders.update(d)
+        for w in d:
+            want[w], kinds[w] = status, kind if w == wid else "child-echo"
+    poller = OneboxPoller(box, deciders)
+    t0 = time.perf_counter()
+    for wid, kind in kinds.items():
+        if kind != "child-echo":
+            poller.timed("start", fe.start_workflow_execution, ONEBOX_DOMAIN, wid, kind,
+                         ONEBOX_TASK_LIST)
+    rounds = [poller.drain()]
+    for wid, kind in kinds.items():
+        if kind == "signal":
+            for s in range(ONEBOX_SIGNALS):
+                poller.timed("signal", fe.signal_workflow_execution, ONEBOX_DOMAIN, wid, f"s{s}")
+        elif kind == "cancel":
+            poller.timed("cancel", fe.request_cancel_workflow_execution, ONEBOX_DOMAIN, wid)
+    box.advance_time(ONEBOX_TIMER_S + 1)
+    rounds.append(poller.drain())
+    t_run = time.perf_counter() - t0
+
+    def closed(wid):
+        info = fe.describe_workflow_execution(ONEBOX_DOMAIN, wid).execution_info
+        return info.state == WorkflowState.Completed and info.close_status == want[wid]
+
+    bad = [w for w in want if not closed(w)]
+    if bad:
+        fail(f"onebox_path: {len(bad)} workflows did not close with their decider's status, "
+             f"first {bad[:5]}")
+    # resets: closed chained workflows to the close of a middle decision
+    domain_id = box.stores.domain.by_name(ONEBOX_DOMAIN).domain_id
+    chained = [w for w, k in kinds.items() if k == "chain"][:resets]
+    if len(chained) < resets:
+        fail(f"onebox_path: {len(chained)} chained workflows for {resets} resets")
+    rebuilt0 = box.rebuilder.stats.device
+    t1 = time.perf_counter()
+    new_runs = {}
+    for wid in chained:
+        run_id = box.stores.execution.get_current_run_id(domain_id, wid)
+        done = [e.id for e in box.stores.history.read_events(domain_id, wid, run_id)
+                if e.event_type == EventType.DecisionTaskCompleted]
+        new_runs[wid] = poller.timed("reset", fe.reset_workflow_execution, ONEBOX_DOMAIN, wid,
+                                     decision_finish_event_id=done[ONEBOX_RESET_DECISION - 1],
+                                     run_id=run_id, reason="onebox_path")
+    rounds.append(poller.drain())
+    t_reset = time.perf_counter() - t1
+    bad = [w for w in chained if not closed(w)
+           or box.stores.execution.get_current_run_id(domain_id, w) != new_runs[w]]
+    if bad:
+        fail(f"onebox_path: {len(bad)} reset workflows did not close again, first {bad[:5]}")
+    rebuilt = box.rebuilder.stats.device - rebuilt0
+    if rebuilt < resets or box.rebuilder.stats.oracle_fallback:
+        fail(f"onebox_path: {rebuilt} resets rebuilt on the device of {resets}, "
+             f"{box.rebuilder.stats.oracle_fallback} through the oracle")
+    # the serving tier settles; every workflow's last ticket resolves clean
+    t2 = time.perf_counter()
+    if not sched.drain(timeout=600):
+        fail("onebox_path: the serving queue did not drain")
+    t_settle = time.perf_counter() - t2
+    stats = sched.stats()
+    keys = box.stores.execution.list_executions()
+    results = {}
+    for key in keys:
+        ticket = last_ticket.get(key)
+        if ticket is None or not ticket.done():
+            fail(f"onebox_path: {key} has no resolved serving ticket")
+        results[key] = ticket.result(timeout=0)
+    bad = [k for k, r in results.items() if not (r.ok and r.parity_ok)]
+    if stats["parity_divergence"] or bad or stats["busy_rejections"]:
+        fail(f"onebox_path: parity divergence {stats['parity_divergence']}, busy rejections "
+             f"{stats['busy_rejections']}, {len(bad)} last tickets not ok, first "
+             f"{[(k, results[k].error) for k in bad[:3]]}")
+    # the scanner: every execution with history verified on the device
+    t3 = time.perf_counter()
+    report = box.scanner.run_once()
+    t_scan = time.perf_counter() - t3
+    with_history = report.executions - len(report.missing_history)
+    verified = report.verify.verified_on_device if report.verify is not None else 0
+    if not report.ok or report.state_divergent or verified != with_history:
+        fail(f"onebox_path: scanner ok={report.ok}, {len(report.state_divergent)} divergent, "
+             f"{verified} verified on the device of {with_history} with history")
+    # a restarted host's first scan: a fresh engine over the same stores,
+    # every key cold (the box's own pool above served every key it holds)
+    from cadence_tpu_torch.engine.tpu_engine import TPUReplayEngine
+    from cadence_tpu_torch.engine.workers import ExecutionScanner
+
+    t4 = time.perf_counter()
+    cold_engine = TPUReplayEngine(box.stores, box.config.payload_layout(), device=box.device)
+    cold = ExecutionScanner(box.stores, cold_engine, box.metrics).run_once()
+    t_cold = time.perf_counter() - t4
+    cold_verified = cold.verify.verified_on_device if cold.verify is not None else 0
+    if (not cold.ok or cold.state_divergent or cold_verified != with_history
+            or cold.verify.fallback):
+        fail(f"onebox_path: the restarted scan ok={cold.ok}, {len(cold.state_divergent)} "
+             f"divergent, {cold_verified} verified on the device of {with_history}")
+    t_all = time.perf_counter() - t_start
+    sched.stop()
+    events = sum(len(box.stores.history.read_events(*k)) for k in keys)
+    verify = report.verify
+    return {
+        "workflows": workflows, "with_children": len(want), "executions": len(keys),
+        "events": events, "resets": resets, "drain_rounds": rounds,
+        "seconds": t_all, "run_s": t_run, "reset_s": t_reset, "settle_s": t_settle,
+        "scan_s": t_scan, "workflows_per_s": len(want) / t_run, "events_per_s": events / t_all,
+        "calls_ms": {k: {"n": len(v), **p50_p99_ms(v)} for k, v in sorted(poller.calls.items())},
+        "serving": {"transactions": stats["transactions"], "flushes": len(flushes),
+                    "batched_launches": stats["batched_launches"],
+                    "coalesced_appends": stats["coalesced_appends"],
+                    "coalescing_factor": stats["coalescing_factor"],
+                    **{k: stats[k] for k in ("cold_admits", "suffix_appends", "exact_serves",
+                                             "bypassed", "requeued", "parity_divergence")},
+                    "queue_wait_ms": {"p50": stats["queue_wait_p50_ms"],
+                                      "p99": stats["queue_wait_p99_ms"]},
+                    "flush_ms": p50_p99_ms([d for d, _ in flushes]),
+                    "mean_flush_transactions": (sum(n for _, n in flushes) / len(flushes)
+                                                if flushes else 0),
+                    "append_shapes": shape_counts(append_shapes),
+                    "cold_shapes": shape_counts(cold_shapes)},
+        "escalated_last_tickets": sum(r.escalated for r in results.values()),
+        "resident_pool": pool_stats(box.tpu.resident),
+        "rebuilt_on_device": rebuilt,
+        "scanner": {"executions": report.executions, "with_history": with_history,
+                    "verified_on_device": verified, "resident": len(verify.resident),
+                    "snapshot": len(verify.snapshot), "escalated": len(verify.escalated),
+                    "fallback": len(verify.fallback), "divergent": len(report.state_divergent)},
+        "restarted_scan": {"seconds": t_cold, "verified_on_device": cold_verified,
+                           "hydrated_from_snapshots": len(cold.verify.snapshot),
+                           "cold": cold_verified - len(cold.verify.resident),
+                           "escalated": len(cold.verify.escalated),
+                           "divergent": len(cold.state_divergent),
+                           "admitted": len(cold_engine.resident)},
+    }
+
+
+def onebox_path(args):
+    """Phase 9a: configuration onebox-2k through the port's Onebox on the
+    card. Returns the launch counts of the run."""
+    import torch
+
+    from cadence_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = onebox_run(args.onebox_workflows, args.onebox_resets, DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    check_launches(launches, "onebox_path", ONEBOX_PATH_KERNELS)
+    config = "onebox-2k" if args.onebox_workflows == ONEBOX_WORKFLOWS else "small"
+    emit("onebox_path", config=config, hosts=ONEBOX_HOSTS, shards=ONEBOX_SHARDS, **out,
+         launches=launches)
     return launches
 
 
@@ -2643,9 +2968,10 @@ def launch_shapes(events_np, dev, gen_events: int, variants=(), fuzz=None) -> di
             timed(f"replay {tag}", "replay",
                   lambda: kept(R.replay_launch(s := clone(s0), ev), s),
                   ev.numel() * 8 + state_bytes(s0), replay_ops(ev))
-    # the resident and verify chunk and the bulk, from fresh states
+    # the resident and verify chunk and the bulk, from fresh states (under
+    # --small the corpus is smaller than the chunk: its rows repeat)
     for Wc in (CHUNK_W, W_all):
-        sub = events_np[:Wc]
+        sub = events_np[np.arange(Wc) % W_all]
         ev = torch.from_numpy(sub).to(dev)
         finals[Wc] = readers(f"{Wc}x{sub.shape[1]}", init_state(Wc, L, dev), ev, sub,
                              sub.shape[1])
@@ -4322,6 +4648,8 @@ def main() -> int:
     p.add_argument("--new-phases-only", action="store_true",
                    help="run the build, fuzz_parity, migration_path and replication_apply, "
                         "and stop")
+    p.add_argument("--onebox-only", action="store_true",
+                   help="run the build and onebox_path, and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
@@ -4342,6 +4670,8 @@ def main() -> int:
     args.fuzz_per_profile = FUZZ_PER_PROFILE if full else 256
     args.mig_workflows = MIG_WORKFLOWS if full else 512
     args.repl_workflows = REPL_WORKFLOWS if full else 512
+    args.onebox_workflows = ONEBOX_WORKFLOWS if full else 256
+    args.onebox_resets = ONEBOX_RESETS if full else 16
 
     import torch
 
@@ -4373,7 +4703,8 @@ def main() -> int:
     from cadence_tpu_torch.utils.metrics import M_NATIVE_PACKS, SCOPE_TPU_NATIVE, MetricsRegistry
 
     t_start = time.perf_counter()
-    if not args.visibility_only:  # host corpora first, in a pool of spawned workers
+    # host corpora first, in a pool of spawned workers (the Onebox makes its own)
+    if not (args.visibility_only or args.onebox_only):
         corp = generate(args)
         histories, oracle = corp["histories"], corp["oracle"]
         emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
@@ -4402,6 +4733,11 @@ def main() -> int:
         kernel_vis(args, dev, [])
         vis_staging(dev)
         visibility_path(args)
+        print(smi)
+        return 0
+    if args.onebox_only:
+        print(json.dumps({"launches": {"onebox_path": onebox_path(args)}}))
+        emit("launch_shapes_by_path", **SHAPES_BY_PATH)
         print(smi)
         return 0
     if args.new_phases_only:
@@ -5068,6 +5404,9 @@ def main() -> int:
     # --- 9. serving_path: the serving scheduler under eight submitter threads
     serving_launches = serving_path(args, corp)
 
+    # --- 9a. onebox_path: the Onebox's committed transactions through the card
+    onebox_launches = onebox_path(args)
+
     # --- 9b. fuzz_parity: the fuzz grammar's parity run and its corpora at scale
     fuzz_launches, scale_launches = fuzz_parity(corp, dev)
     del corp["fuzz"]
@@ -5091,7 +5430,8 @@ def main() -> int:
              "north_star_parity": parity_launches, "host_generator": host_gen_launches,
              "fallback_ladder": ladder_launches, "rebuild_path": rebuild_launches,
              "verify_path": verify_launches, "resident_path": resident_launches,
-             "serving_path": serving_launches, "fuzz_parity": fuzz_launches,
+             "serving_path": serving_launches, "onebox_path": onebox_launches,
+             "fuzz_parity": fuzz_launches,
              "fuzz_scale": scale_launches, "migration_path": migration_launches,
              "replication_apply": replication_launches, "visibility_path": visibility_launches}
     for rec in records:

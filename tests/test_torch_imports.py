@@ -65,8 +65,11 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("name", ["gen.fuzz", "gen.shrink", "engine.migration", "engine.replication"])
+@pytest.mark.parametrize("name", ["gen.fuzz", "gen.shrink", "engine.migration", "engine.replication",
+                                  "engine.onebox", "engine.history_engine", "engine.frontend",
+                                  "engine.matching", "engine.queues", "engine.workers",
+                                  "utils.hostprof", "utils.scrape", "models.deciders"])
 def test_the_walk_reaches_the_fuzz_and_cluster_modules(name):
-    """The grammar, its shrinker, shard migration and the replication pump
-    are among the modules both tests above walk."""
+    """The grammar, its shrinker, shard migration, the replication pump and
+    the Onebox's modules are among the modules both tests above walk."""
     assert f"cadence_tpu_torch.{name}" in set(_modules())

@@ -400,3 +400,62 @@ def host_kernel(tmp_dir, source: str, cut: str, harness: str, close: str = ""):
                            str(src)], capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, f"{source} as host C++:\n{done.stderr[-4000:]}"
     return ctypes.CDLL(str(lib))
+
+
+def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -> dict:
+    """The reference's own test module tests/`filename` pointed at the port:
+    every `cadence_tpu` name rewritten to `cadence_tpu_torch`, each Onebox
+    built on the CPU (`device="cpu"`), imports of modules the port does not
+    have dropped, and only the test classes in `classes` kept (all when
+    None), less the methods named "Class.method" in `leave_out` (those of a
+    module the port does not have yet). Its module-level fixtures are
+    renamed `<name>_<tag>` throughout the file and its kept classes
+    `Test<Tag><Name>`, so that several ported files can share one test
+    module's namespace. What is left out becomes blank lines, so each line
+    keeps its number in tracebacks. Returns the names to put in that
+    namespace: the kept classes and the renamed fixtures."""
+    import ast
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), filename)
+    src = open(path).read()
+    lines = src.splitlines()
+    tree = ast.parse(src)
+    fixtures = [n.name for n in tree.body if isinstance(n, ast.FunctionDef) and any(
+        "fixture" in ast.get_source_segment(src, d) for d in n.decorator_list)]
+
+    def blank(node):
+        first = min([d.lineno for d in getattr(node, "decorator_list", ())] + [node.lineno])
+        lines[first - 1:node.end_lineno] = [""] * (node.end_lineno - first + 1)
+
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            seg = re.sub(r"\bcadence_tpu\b", "cadence_tpu_torch",
+                         ast.get_source_segment(src, node))
+            try:
+                exec(seg, {})
+            except ImportError:
+                blank(node)  # a module the port does not have
+        elif isinstance(node, ast.ClassDef):
+            if classes is not None and node.name not in classes:
+                blank(node)
+                continue
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef) and f"{node.name}.{item.name}" in leave_out:
+                    blank(item)
+    body = "\n".join(lines)
+    body = re.sub(r"\bcadence_tpu\b", "cadence_tpu_torch", body)
+    body = re.sub(r"\bOnebox\((\)?)", lambda mt: 'Onebox(device="cpu")' if mt.group(1)
+                  else 'Onebox(device="cpu", ', body)
+    for name in fixtures:
+        body = re.sub(rf"(?<![.\w]){name}\b", f"{name}_{tag}", body)
+    namespace = {"__name__": f"tests.ported_{tag}", "__file__": path}
+    exec(compile(body, path, "exec"), namespace)
+    out = {f"{name}_{tag}": namespace[f"{name}_{tag}"] for name in fixtures}
+    for name, obj in namespace.items():
+        if (isinstance(obj, type) and name.startswith("Test")
+                and obj.__module__ == namespace["__name__"]):
+            kept = f"Test{tag.capitalize()}{name[4:]}"
+            out[kept] = type(kept, (obj,), {})
+    return out
