@@ -17,8 +17,8 @@ nosql/sql backends) reduced to its semantic contract:
   branch tree arrives with the replication layer).
 
 Durability: every store accepts an optional write-ahead log
-(engine/durability.py DurableLog, which comes to the port with the host
-control plane; until then no log is attached and nothing is logged). Mutations append one JSONL record;
+(engine/durability.py DurableLog or SqliteLog, attached by
+open_durable_stores and recover_stores). Mutations append one JSONL record;
 recovery replays the log into fresh stores and REBUILDS mutable states
 from history (event sourcing — the snapshot store is derivable), with the
 replay engine bulk-verifying the rebuilt states (the reference's

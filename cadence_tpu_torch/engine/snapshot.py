@@ -13,9 +13,9 @@ deletion).
 The host half: `enabled`, `layout_signature`, the state-row blob
 (`pack_state_row` gives the JAX package's bytes for the same state;
 `unpack_state_row` rebuilds a W=1 ReplayState of CPU tensors),
-`SnapshotRecord`, `SnapshotStore` and `validate_record`. Until the host
-control plane brings the write-ahead log (engine/durability.py), `put`
-logs nothing.
+`SnapshotRecord`, `SnapshotStore` and `validate_record`. On durable
+stores (engine/durability.py) `put` logs each record as a "snap" record
+of the write-ahead log.
 
 The device half feeds and reads the resident pool (engine/resident.py):
 - `seed_caches` / `seed_from_batches` hydrate a valid record into the
@@ -377,7 +377,7 @@ class Snapshotter:
                                                      str(DEFAULT_EVERY_EVENTS))))
         self._lock = threading.Lock()
         #: called with every record this writer persists (snapshot-shipping
-        #: replication, a later slice); a failure never fails the write
+        #: replication, engine/multicluster.py); a failure never fails the write
         self.shipper = None
         #: per-key appended events since the last snapshot write
         self._since: Dict[tuple, int] = {}

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --new-phases-only  # their corpora, the build, fuzz_parity,
                                      # migration_path and replication_apply
     python3 chip_smoke.py --onebox-only  # the build and onebox_path
+    python3 chip_smoke.py --region-only  # the build and region_path
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
                                      # checkout's kernels A, B, C, D, E, G, H, I,
                                      # J, K, L and A's generator reader (and
@@ -277,10 +278,34 @@ Phases, one JSON line each:
      the oracle's; the standby's histories and states equal the active's.
      The same drain over 512 of the workflows with
      CADENCE_TPU_REPL_DEVICE=0 launches no kernel.
+  9e. region_path, configuration region-2k: ReplicatedClusters(num_hosts=2,
+     num_shards=8, device="cuda"), two regions of the JAX package's default
+     cluster, the active one's stores a SQLite WAL (open_durable_stores on
+     a .db path in a temporary directory), the serving tier on, device
+     visibility off, snapshot shipping on at the port's default policy (8 /
+     32 events); one global domain and 2,048 workflows of onebox-2k's seven
+     decider kinds in turn. (a) every workflow started on the active region
+     and driven through its decisions (activities, signals, cancels and
+     timers left waiting), replication drained; (b) FailoverManager.
+     managed_failover to the standby: ok, no degraded drain, its
+     prehydration (the migration tier's hydration of the shipped snapshots)
+     with hydrated > 0 and 0 parity divergence; (c) every workflow finished
+     through the promoted region's serving tier with its decider's status,
+     0 parity divergence, each execution's last ticket ok, and the reverse
+     stream drained into the old active region; (d) the old active region
+     dropped unclosed, recover_stores(wal, device="cuda"): every run's
+     Checksum equal to the promoted region's, none divergent, every run
+     verified on the card, walcheck's record and store audits with 0
+     findings; (e) AdminHandler.verify on the promoted region and on a
+     Onebox over the recovered stores, each verifying every run on the
+     card with 0 divergent. Prints each step's wall, workflows/s, the
+     recovery's runs/s, the prehydration report, the recovery report, the
+     flush shapes of both regions' serving tiers and the launches.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
 rebuild_path, verify_path, resident_path, serving_path, onebox_path,
-fuzz_parity's two legs, migration_path, replication_apply, visibility_path)
+fuzz_parity's two legs, migration_path, replication_apply, region_path,
+visibility_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched, or if it launched
 kernel H or F (FOLDED_KERNELS: the paths take their results from kernel
@@ -462,6 +487,25 @@ ONEBOX_RESET_DECISION = 3
 #: engine hands the tier no state past it (payload_row raises, the hand-off
 #: is skipped), so no Onebox transaction reaches it
 ONEBOX_PATH_KERNELS = ("replay", "replay_tasks", "payload", "payload_counts", "verify_rows",
+                       "rehome")
+#: region_path, configuration region-2k: two regions, each the JAX package's
+#: default cluster (2 history hosts, 8 shards), the active one logging to a
+#: SQLite WAL; one global domain and 2,048 workflows of onebox-2k's seven
+#: decider kinds in turn; the serving tier on, device visibility off,
+#: snapshot shipping on at the port's default policy (8 / 32 events)
+REGION_WORKFLOWS = 2048
+REGION_DOMAIN = "region-domain"
+#: signal workflows started on the promoted region after the flip and left
+#: waiting for their signals when the old active region crashes: young
+#: runs (4 events, under the policy's 8), so no snapshot covers them and
+#: the recovery rebuilds and verifies them cold
+REGION_NEW_STARTS = 64
+#: the serving flushes on both regions and the standby's device apply (G,
+#: A from the carried state, B), the promotion's prehydration (G, A from
+#: the shipped snapshots' states, B), the crash recovery's DeviceRebuilder
+#: (A's TASKS variant, B) and bulk verify (A, B with the counts, D), and
+#: the admin verifies (A, B with the counts, D)
+REGION_PATH_KERNELS = ("replay", "replay_tasks", "payload", "payload_counts", "verify_rows",
                        "rehome")
 
 
@@ -1622,9 +1666,12 @@ class OneboxPoller:
     """tests/taskpoller.py's worker loop (poll a decision or an activity
     task through the frontend and respond), timing each call pair by kind."""
 
-    def __init__(self, box, deciders) -> None:
+    def __init__(self, box, deciders, domain: str = ONEBOX_DOMAIN,
+                 phase: str = "onebox_path") -> None:
         self.box = box
         self.deciders = deciders
+        self.domain = domain
+        self.phase = phase
         self.calls = collections.defaultdict(list)
 
     def timed(self, kind: str, fn, *a, **k):
@@ -1636,7 +1683,7 @@ class OneboxPoller:
     def decide_once(self) -> bool:
         fe = self.box.frontend
         t0 = time.perf_counter()
-        resp = fe.poll_for_decision_task(ONEBOX_DOMAIN, ONEBOX_TASK_LIST)
+        resp = fe.poll_for_decision_task(self.domain, ONEBOX_TASK_LIST)
         if resp is None:
             return False
         decisions = self.deciders[resp.token.workflow_id].decide(resp.history)
@@ -1647,23 +1694,79 @@ class OneboxPoller:
     def activity_once(self) -> bool:
         fe = self.box.frontend
         t0 = time.perf_counter()
-        resp = fe.poll_for_activity_task(ONEBOX_DOMAIN, ONEBOX_TASK_LIST)
+        resp = fe.poll_for_activity_task(self.domain, ONEBOX_TASK_LIST)
         if resp is None:
             return False
         fe.respond_activity_task_completed(resp.token)
         self.calls["activity"].append(time.perf_counter() - t0)
         return True
 
-    def drain(self, max_rounds: int = 500) -> int:
+    def drain(self, max_rounds: int = 500, activities: bool = True) -> int:
+        """Pump and answer tasks until the cluster is quiet; without
+        `activities`, only decision tasks are answered (the activity tasks
+        stay in matching's backlog). Returns the rounds taken."""
         for n in range(max_rounds):
             progressed = self.box.pump_once() > 0
             while self.decide_once():
                 progressed = True
-            while self.activity_once():
+            while activities and self.activity_once():
                 progressed = True
-            if not progressed and self.box.matching.backlog() == 0:
+            if not progressed and (not activities or self.box.matching.backlog() == 0):
                 return n + 1
-        fail("onebox_path: the cluster did not drain")
+        fail(f"{self.phase}: the cluster did not drain")
+
+
+def record_tickets(sched) -> dict:
+    """Each key's last serving ticket, recorded as the engines hand their
+    committed transactions to `sched` (the dict fills as the run goes)."""
+    last_ticket, submit = {}, sched.submit
+
+    def recorded_submit(key, *a, **k):
+        ticket = submit(key, *a, **k)
+        last_ticket[key] = ticket
+        return ticket
+
+    sched.submit = recorded_submit
+    return last_ticket
+
+
+def settle_serving(sched, last_ticket: dict, keys, what: str) -> dict:
+    """Drain `sched` and fail unless it kept 0 parity divergence and 0
+    busy rejections and every key of `keys` has a last ticket resolved ok
+    and parity_ok. Returns the scheduler's stats."""
+    if not sched.drain(timeout=600):
+        fail(f"{what}: the serving queue did not drain")
+    stats = sched.stats()
+    results = {}
+    for key in keys:
+        ticket = last_ticket.get(key)
+        if ticket is None or not ticket.done():
+            fail(f"{what}: {key} has no resolved serving ticket")
+        results[key] = ticket.result(timeout=0)
+    bad = [k for k, r in results.items() if not (r.ok and r.parity_ok)]
+    if stats["parity_divergence"] or bad or stats["busy_rejections"]:
+        fail(f"{what}: parity divergence {stats['parity_divergence']}, busy rejections "
+             f"{stats['busy_rejections']}, {len(bad)} last tickets not ok, first "
+             f"{[(k, results[k].error) for k in bad[:3]]}")
+    return stats
+
+
+def serving_summary(stats: dict, flushes, append_shapes, cold_shapes) -> dict:
+    """A serving tier's figures: its stats and what instrument_serving
+    recorded."""
+    return {"transactions": stats["transactions"], "flushes": len(flushes),
+            "batched_launches": stats["batched_launches"],
+            "coalesced_appends": stats["coalesced_appends"],
+            "coalescing_factor": stats["coalescing_factor"],
+            **{k: stats[k] for k in ("cold_admits", "suffix_appends", "exact_serves",
+                                     "bypassed", "requeued", "parity_divergence")},
+            "queue_wait_ms": {"p50": stats["queue_wait_p50_ms"],
+                              "p99": stats["queue_wait_p99_ms"]},
+            "flush_ms": p50_p99_ms([d for d, _ in flushes]),
+            "mean_flush_transactions": (sum(n for _, n in flushes) / len(flushes)
+                                        if flushes else 0),
+            "append_shapes": shape_counts(append_shapes),
+            "cold_shapes": shape_counts(cold_shapes)}
 
 
 def onebox_run(workflows: int, resets: int, device) -> dict:
@@ -1679,16 +1782,8 @@ def onebox_run(workflows: int, resets: int, device) -> dict:
     t_start = time.perf_counter()
     box = Onebox(num_hosts=ONEBOX_HOSTS, num_shards=ONEBOX_SHARDS, device=device)
     sched = box.enable_serving()
-    # each workflow's last ticket, from the engines' hand-off
-    last_ticket, submit = {}, sched.submit
-
-    def recorded_submit(key, *a, **k):
-        ticket = submit(key, *a, **k)
-        last_ticket[key] = ticket
-        return ticket
-
-    sched.submit = recorded_submit
-    flushes, append_shapes, cold_shapes = instrument_serving(box.tpu, sched)
+    last_ticket = record_tickets(sched)
+    served = instrument_serving(box.tpu, sched)
     fe = box.frontend
     fe.register_domain(ONEBOX_DOMAIN)
     deciders, want, kinds = {}, {}, {}
@@ -1751,22 +1846,9 @@ def onebox_run(workflows: int, resets: int, device) -> dict:
              f"{box.rebuilder.stats.oracle_fallback} through the oracle")
     # the serving tier settles; every workflow's last ticket resolves clean
     t2 = time.perf_counter()
-    if not sched.drain(timeout=600):
-        fail("onebox_path: the serving queue did not drain")
-    t_settle = time.perf_counter() - t2
-    stats = sched.stats()
     keys = box.stores.execution.list_executions()
-    results = {}
-    for key in keys:
-        ticket = last_ticket.get(key)
-        if ticket is None or not ticket.done():
-            fail(f"onebox_path: {key} has no resolved serving ticket")
-        results[key] = ticket.result(timeout=0)
-    bad = [k for k, r in results.items() if not (r.ok and r.parity_ok)]
-    if stats["parity_divergence"] or bad or stats["busy_rejections"]:
-        fail(f"onebox_path: parity divergence {stats['parity_divergence']}, busy rejections "
-             f"{stats['busy_rejections']}, {len(bad)} last tickets not ok, first "
-             f"{[(k, results[k].error) for k in bad[:3]]}")
+    stats = settle_serving(sched, last_ticket, keys, "onebox_path")
+    t_settle = time.perf_counter() - t2
     # the scanner: every execution with history verified on the device
     t3 = time.perf_counter()
     report = box.scanner.run_once()
@@ -1800,20 +1882,8 @@ def onebox_run(workflows: int, resets: int, device) -> dict:
         "seconds": t_all, "run_s": t_run, "reset_s": t_reset, "settle_s": t_settle,
         "scan_s": t_scan, "workflows_per_s": len(want) / t_run, "events_per_s": events / t_all,
         "calls_ms": {k: {"n": len(v), **p50_p99_ms(v)} for k, v in sorted(poller.calls.items())},
-        "serving": {"transactions": stats["transactions"], "flushes": len(flushes),
-                    "batched_launches": stats["batched_launches"],
-                    "coalesced_appends": stats["coalesced_appends"],
-                    "coalescing_factor": stats["coalescing_factor"],
-                    **{k: stats[k] for k in ("cold_admits", "suffix_appends", "exact_serves",
-                                             "bypassed", "requeued", "parity_divergence")},
-                    "queue_wait_ms": {"p50": stats["queue_wait_p50_ms"],
-                                      "p99": stats["queue_wait_p99_ms"]},
-                    "flush_ms": p50_p99_ms([d for d, _ in flushes]),
-                    "mean_flush_transactions": (sum(n for _, n in flushes) / len(flushes)
-                                                if flushes else 0),
-                    "append_shapes": shape_counts(append_shapes),
-                    "cold_shapes": shape_counts(cold_shapes)},
-        "escalated_last_tickets": sum(r.escalated for r in results.values()),
+        "serving": serving_summary(stats, *served),
+        "escalated_last_tickets": sum(last_ticket[k].result(timeout=0).escalated for k in keys),
         "resident_pool": pool_stats(box.tpu.resident),
         "rebuilt_on_device": rebuilt,
         "scanner": {"executions": report.executions, "with_history": with_history,
@@ -1845,6 +1915,216 @@ def onebox_path(args):
     config = "onebox-2k" if args.onebox_workflows == ONEBOX_WORKFLOWS else "small"
     emit("onebox_path", config=config, hosts=ONEBOX_HOSTS, shards=ONEBOX_SHARDS, **out,
          launches=launches)
+    return launches
+
+
+def region_run(workflows: int, device, workdir: str) -> dict:
+    """configuration region-2k on `device`: (a) the workflows started on
+    the active region and driven through their decisions (activities,
+    signals, cancels and timers left waiting), replication drained, a
+    deploy warm-up snapshot sweep shipped; (b) FailoverManager.
+    managed_failover to the standby, prehydrating its serving tier; (c)
+    every workflow finished on the promoted region through its serving
+    tier, the reverse stream drained into the old active region; (d) the
+    old active region dropped unclosed and recovered from its SQLite WAL
+    by recover_stores on `device`, every run equal to the promoted
+    region's and walcheck clean; (e) AdminHandler.verify on both regions.
+    Every check of the run is made here; returns its figures."""
+    from cadence_tpu_torch.core.checksum import Checksum
+    from cadence_tpu_torch.core.enums import WorkflowState
+    from cadence_tpu_torch.engine import walcheck
+    from cadence_tpu_torch.engine.admin import AdminHandler
+    from cadence_tpu_torch.engine.durability import open_durable_stores, recover_stores
+    from cadence_tpu_torch.engine.failovermanager import FailoverManager
+    from cadence_tpu_torch.engine.multicluster import ReplicatedClusters
+    from cadence_tpu_torch.engine.onebox import Onebox
+    from cadence_tpu_torch.utils import metrics as M
+
+    os.environ.pop("CADENCE_TPU_VISIBILITY", None)  # visibility_path covers that tier
+    wal = os.path.join(workdir, "region-active.db")
+    walls = {}
+    t_start = time.perf_counter()
+    c = ReplicatedClusters(num_hosts=ONEBOX_HOSTS, num_shards=ONEBOX_SHARDS,
+                           active_stores=open_durable_stores(wal), device=device)
+    sched_a = c.active.enable_serving()
+    tickets_a = record_tickets(sched_a)
+    served_a = instrument_serving(c.active.tpu, sched_a)
+    c.register_global_domain(REGION_DOMAIN)
+    deciders, want, kinds = {}, {}, {}
+    for i in range(workflows):
+        kind = ONEBOX_KINDS[i % len(ONEBOX_KINDS)]
+        wid = f"rg-{kind}-{i}"
+        d, status = onebox_deciders(kind, wid)
+        deciders.update(d)
+        for w in d:
+            want[w], kinds[w] = status, kind if w == wid else "child-echo"
+
+    # (a) start and replicate
+    t0 = time.perf_counter()
+    fe = c.active.frontend
+    for wid, kind in kinds.items():
+        if kind != "child-echo":
+            fe.start_workflow_execution(REGION_DOMAIN, wid, kind, ONEBOX_TASK_LIST)
+    replicated = [c.replicate()]
+    poller_a = OneboxPoller(c.active, deciders, REGION_DOMAIN, "region_path")
+    rounds = [poller_a.drain(activities=False)]
+    replicated.append(c.replicate())
+    keys_a = c.active.stores.execution.list_executions()
+    settle_serving(sched_a, tickets_a, keys_a, "region_path (a)")
+    policy_written = c.active.metrics.counter(M.SCOPE_TPU_SNAPSHOT, M.M_SNAP_WRITES)
+    # the deploy warm-up sweep (tests/test_multiregion.py warm_clusters):
+    # every resident row at its stored tip snapshots and ships. The policy
+    # alone writes few here, and which ones races the flushes: a young run
+    # (under 8 events) gets none, and a flush that finds the store past its
+    # resident row writes none
+    sweep = c.active.tpu.snapshotter().sweep(force=True)
+    replicated.append(c.replicate())
+    shipped = c.processor.snapshots_installed
+    walls["a_start_replicate_s"] = time.perf_counter() - t0
+    if shipped < 1:
+        fail("region_path (a): no snapshot reached the standby")
+
+    # (b) fail over to the standby, its serving tier prehydrated
+    t0 = time.perf_counter()
+    report = FailoverManager(c).managed_failover([REGION_DOMAIN], to_cluster="standby")
+    walls["b_failover_s"] = time.perf_counter() - t0
+    pre = report.prehydration
+    if not report.ok or report.succeeded != 1 or report.drain_degraded:
+        fail(f"region_path (b): failover ok={report.ok}, succeeded {report.succeeded}, "
+             f"degraded drains {report.drain_degraded}, {report.results}")
+    if pre is None or pre["hydrated"] <= 0 or pre["parity_divergence"]:
+        fail(f"region_path (b): prehydration {pre}")
+
+    # (c) finish on the promoted region (new starts there left waiting),
+    # then drain the reverse stream
+    t0 = time.perf_counter()
+    box_s = c.standby
+    sched_s = box_s.enable_serving()
+    tickets_s = record_tickets(sched_s)
+    served_s = instrument_serving(box_s.tpu, sched_s)
+    fe = box_s.frontend
+    poller_s = OneboxPoller(box_s, deciders, REGION_DOMAIN, "region_path")
+    fresh = [f"rg-new-{i}" for i in range(REGION_NEW_STARTS)]
+    for wid in fresh:
+        deciders[wid] = onebox_deciders("signal", wid)[0][wid]
+        fe.start_workflow_execution(REGION_DOMAIN, wid, "signal", ONEBOX_TASK_LIST)
+    rounds.append(poller_s.drain())
+    for wid, kind in kinds.items():
+        if kind == "signal":
+            for s in range(ONEBOX_SIGNALS):
+                fe.signal_workflow_execution(REGION_DOMAIN, wid, f"s{s}")
+        elif kind == "cancel":
+            fe.request_cancel_workflow_execution(REGION_DOMAIN, wid)
+    box_s.advance_time(ONEBOX_TIMER_S + 1)
+    rounds.append(poller_s.drain())
+
+    def closed(box, wid):
+        info = box.frontend.describe_workflow_execution(REGION_DOMAIN, wid).execution_info
+        return info.state == WorkflowState.Completed and info.close_status == want[wid]
+
+    bad = [w for w in want if not closed(box_s, w)]
+    bad += [w for w in fresh if fe.describe_workflow_execution(
+        REGION_DOMAIN, w).execution_info.state == WorkflowState.Completed]
+    if bad:
+        fail(f"region_path (c): {len(bad)} workflows did not close with their decider's "
+             f"status on the promoted region, or closed unsignalled, first {bad[:5]}")
+    keys = box_s.stores.execution.list_executions()
+    stats_s = settle_serving(sched_s, tickets_s, keys, "region_path (c)")
+    sched_s.stop()
+    walls["c_finish_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reverse = c.replicate_reverse()
+    walls["c_reverse_s"] = time.perf_counter() - t0
+    stats_a = settle_serving(sched_a, tickets_a, keys_a, "region_path (a), after the reverse "
+                             "stream")
+
+    # (d) crash the old active region and recover it from its WAL
+    sched_a.stop()
+    promoted = {k: Checksum.of(box_s.stores.execution.get_workflow(*k)).value for k in keys}
+    c.active = None  # the region is gone unclosed: only its WAL is left
+    t0 = time.perf_counter()
+    stores_r, rec = recover_stores(wal, device=device)
+    walls["d_recover_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recovered = {k: Checksum.of(stores_r.execution.get_workflow(*k)).value
+                 for k in stores_r.execution.list_executions()}
+    if recovered != promoted:
+        differ = sorted(k for k in set(recovered) | set(promoted)
+                        if recovered.get(k) != promoted.get(k))
+        fail(f"region_path (d): {len(differ)} recovered runs differ from the promoted region's "
+             f"({len(recovered)} recovered, {len(promoted)} promoted), first {differ[:3]}")
+    findings = (walcheck.audit_records(walcheck.read_raw_lines(wal))
+                + walcheck.audit_stores(stores_r))
+    if (rec.divergent or findings or rec.device_verified != rec.executions_rebuilt
+            or rec.open_workflows != len(fresh) or rec.rebuild_fallback):
+        fail(f"region_path (d): {len(rec.divergent)} divergent, {rec.device_verified} of "
+             f"{rec.executions_rebuilt} verified on the device, {rec.open_workflows} open of "
+             f"{len(fresh)}, {rec.rebuild_fallback} rebuilt by the oracle, walcheck "
+             f"{[f.as_dict() for f in findings[:3]]}")
+    walls["d_check_s"] = time.perf_counter() - t0
+
+    # (e) the admin verify on both regions
+    t0 = time.perf_counter()
+    box_r = Onebox(num_hosts=ONEBOX_HOSTS, num_shards=ONEBOX_SHARDS, cluster_name="primary",
+                   stores=stores_r, device=device)
+    admin = {}
+    for name, box in (("primary", box_r), ("standby", box_s)):
+        result = AdminHandler(box).verify()
+        admin[name] = {"verified_on_device": result.verified_on_device,
+                       "divergent": len(result.divergent), "fallback": len(result.fallback)}
+        if not result.ok or result.divergent or result.verified_on_device != len(keys):
+            fail(f"region_path (e): admin verify on {name}: {admin[name]} of {len(keys)}")
+    walls["e_admin_verify_s"] = time.perf_counter() - t0
+    stores_r.wal.close()
+    t_all = time.perf_counter() - t_start
+    events = sum(len(box_s.stores.history.read_events(*k)) for k in keys)
+    return {
+        "workflows": workflows, "with_children": len(want), "new_on_promoted": len(fresh),
+        "executions": len(keys), "events": events,
+        "wal_records": len(walcheck.read_raw_lines(wal)),
+        "drain_rounds": rounds, "replicated_tasks": replicated, "reverse_tasks": reverse,
+        "seconds": t_all, "walls": walls,
+        "workflows_per_s": len(want) / (walls["a_start_replicate_s"] + walls["b_failover_s"]
+                                        + walls["c_finish_s"]),
+        "recovery_runs_per_s": rec.executions_rebuilt / walls["d_recover_s"],
+        "snapshots": {"policy_written": policy_written, "sweep_written": sweep.written,
+                      "installed_on_standby": shipped,
+                      "installed_on_old_active": c.reverse_processor.snapshots_installed},
+        "prehydration": pre,
+        "failover": {"succeeded": report.succeeded, "drain_degraded": report.drain_degraded},
+        "recovery": {"executions_rebuilt": rec.executions_rebuilt,
+                     "open_workflows": rec.open_workflows, "device_rebuilt": rec.device_rebuilt,
+                     "rebuild_fallback": rec.rebuild_fallback,
+                     "snapshot_hydrated": rec.snapshot_hydrated,
+                     "device_verified": rec.device_verified,
+                     "oracle_fallback": rec.oracle_fallback, "divergent": len(rec.divergent),
+                     "quarantined": len(rec.quarantined), "walcheck_findings": len(findings),
+                     "equal_to_promoted": len(recovered)},
+        "admin_verify": admin,
+        "serving_active": serving_summary(stats_a, *served_a),
+        "serving_promoted": serving_summary(stats_s, *served_s),
+    }
+
+
+def region_path(args):
+    """Phase 9e: configuration region-2k through the port's two regions on
+    the card. Returns the launch counts of the run."""
+    import tempfile
+
+    import torch
+
+    from cadence_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory(prefix="region-") as workdir:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = region_run(args.region_workflows, DEVICE, workdir)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+    config = "region-2k" if args.region_workflows == REGION_WORKFLOWS else "small"
+    emit("region_path", config=config, hosts=ONEBOX_HOSTS, shards=ONEBOX_SHARDS, **out,
+         launches=launches)
+    check_launches(launches, "region_path", REGION_PATH_KERNELS)
     return launches
 
 
@@ -4650,6 +4930,8 @@ def main() -> int:
                         "and stop")
     p.add_argument("--onebox-only", action="store_true",
                    help="run the build and onebox_path, and stop")
+    p.add_argument("--region-only", action="store_true",
+                   help="run the build and region_path, and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
@@ -4672,6 +4954,7 @@ def main() -> int:
     args.repl_workflows = REPL_WORKFLOWS if full else 512
     args.onebox_workflows = ONEBOX_WORKFLOWS if full else 256
     args.onebox_resets = ONEBOX_RESETS if full else 16
+    args.region_workflows = REGION_WORKFLOWS if full else 256
 
     import torch
 
@@ -4704,7 +4987,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # host corpora first, in a pool of spawned workers (the Onebox makes its own)
-    if not (args.visibility_only or args.onebox_only):
+    if not (args.visibility_only or args.onebox_only or args.region_only):
         corp = generate(args)
         histories, oracle = corp["histories"], corp["oracle"]
         emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
@@ -4737,6 +5020,11 @@ def main() -> int:
         return 0
     if args.onebox_only:
         print(json.dumps({"launches": {"onebox_path": onebox_path(args)}}))
+        emit("launch_shapes_by_path", **SHAPES_BY_PATH)
+        print(smi)
+        return 0
+    if args.region_only:
+        print(json.dumps({"launches": {"region_path": region_path(args)}}))
         emit("launch_shapes_by_path", **SHAPES_BY_PATH)
         print(smi)
         return 0
@@ -5417,6 +5705,9 @@ def main() -> int:
     # --- 9d. replication_apply: the standby's device apply behind its pump
     replication_launches = replication_apply(corp)
 
+    # --- 9e. region_path: the WAL, the warm failover and crash recovery
+    region_launches = region_path(args)
+
     # --- 10. kernel_vis: kernels J, K and L on the columnar table
     kernel_vis(args, dev, records)
 
@@ -5433,7 +5724,8 @@ def main() -> int:
              "serving_path": serving_launches, "onebox_path": onebox_launches,
              "fuzz_parity": fuzz_launches,
              "fuzz_scale": scale_launches, "migration_path": migration_launches,
-             "replication_apply": replication_launches, "visibility_path": visibility_launches}
+             "replication_apply": replication_launches, "region_path": region_launches,
+             "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
         if rec["name"] == "payload":

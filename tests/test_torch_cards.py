@@ -158,3 +158,15 @@ def test_sharded_generator_across_cards():
     got = feed_corpus(hists, chunk_workflows=64, mesh=cards)
     want = feed_corpus(hists, chunk_workflows=64, mesh=one)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_graft_entry_dryrun_across_cards():
+    """graft_entry.dryrun_multichip over every card: each payload row equal
+    to the oracle's, the one-shot sharded replay's rows and stats, the
+    wirec stream's CRCs, then the same rows from the cards reversed and,
+    with four or more, from half of them."""
+    from cadence_tpu_torch.graft_entry import dryrun_multichip
+
+    mesh = _cards(2)
+    line = dryrun_multichip(mesh.size)
+    assert line["devices"] == mesh.size and line["workflows"] >= 4096

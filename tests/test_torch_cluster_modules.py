@@ -53,18 +53,17 @@ globals().update(ported_reference("test_archival.py", tag="archival"))
 globals().update(ported_reference("test_migration.py", classes=("TestControllerHooks",),
                                   tag="migration"))
 #: methods of the kept classes that test a module the port has not taken yet
-#: (rpc/ and engine/admin.py, ROADMAP queue A)
-RPC_OR_ADMIN = ("TestRetryPolicy.test_non_retriable_classification",
-                "TestRetryPolicy.test_request_idempotency_classification",
-                "TestTracing.test_wire_envelope_round_trip",
-                "TestScrapeSurface.test_admin_metrics_surface")
+#: (rpc/, ROADMAP queue A)
+WAITS_FOR_RPC = ("TestRetryPolicy.test_non_retriable_classification",
+                 "TestRetryPolicy.test_request_idempotency_classification",
+                 "TestTracing.test_wire_envelope_round_trip")
 
 globals().update(ported_reference("test_resilience.py", classes=("TestRetryPolicy",),
-                                  tag="resilience", leave_out=RPC_OR_ADMIN))
+                                  tag="resilience", leave_out=WAITS_FOR_RPC))
 globals().update(ported_reference(
     "test_observability.py", classes=("TestHistogram", "TestPrometheus", "TestTracing",
                                       "TestOneboxTraces", "TestScrapeSurface"),
-    tag="observability", leave_out=RPC_OR_ADMIN))
+    tag="observability", leave_out=WAITS_FOR_RPC))
 globals().update(ported_reference(
     "test_telemetry.py", classes=("TestTimeSeriesSampler", "TestHostProfiler",
                                   "TestScrapeConsistency", "TestTelemetryScrapeSurface"),

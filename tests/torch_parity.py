@@ -150,6 +150,27 @@ def reset_port_tiers() -> None:
     resident.reset_all()
 
 
+def reset_port_globals() -> None:
+    """Everything tests/conftest.py resets for the JAX package, for the
+    port: the default registry and tracer, the circuit breakers, the armed
+    crashpoint, the quota limiters, the telemetry plane, and every serving
+    drain thread, resident slab and visibility view."""
+    from cadence_tpu_torch.engine import crashpoints, visibility_device
+    from cadence_tpu_torch.utils import (circuitbreaker, flightrecorder, hostprof, metrics,
+                                         quotas, timeseries, tracing)
+
+    metrics.DEFAULT_REGISTRY.reset()
+    tracing.DEFAULT_TRACER.reset()
+    circuitbreaker.DEFAULT_BREAKERS.reset()
+    crashpoints.uninstall()
+    quotas.reset_all()
+    flightrecorder.reset_all()
+    timeseries.reset_all()
+    hostprof.reset_all()
+    reset_port_tiers()
+    visibility_device.reset_all()
+
+
 def overflow_chain(pkg):
     """tests/test_resident.py's three-stage history in package pkg: the
     prefix pins 12 activities; append 1 schedules 10 more (22 at once:
@@ -402,6 +423,18 @@ def host_kernel(tmp_dir, source: str, cut: str, harness: str, close: str = ""):
     return ctypes.CDLL(str(lib))
 
 
+#: the port's entry points besides Onebox that take a `device` (None: the
+#: card), which ported_reference calls with `device="cpu"`
+ON_CPU = ("ReplicatedClusters", "recover_stores", "seed_workload", "CrashSim")
+
+
+def _on_cpu(fn):
+    """`fn` with `device="cpu"` unless the call names a device."""
+    import functools
+
+    return functools.partial(fn, device="cpu")
+
+
 def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -> dict:
     """The reference's own test module tests/`filename` pointed at the port:
     every `cadence_tpu` name rewritten to `cadence_tpu_torch`, each Onebox
@@ -412,8 +445,9 @@ def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -
     renamed `<name>_<tag>` throughout the file and its kept classes
     `Test<Tag><Name>`, so that several ported files can share one test
     module's namespace. What is left out becomes blank lines, so each line
-    keeps its number in tracebacks. Returns the names to put in that
-    namespace: the kept classes and the renamed fixtures."""
+    keeps its number in tracebacks. The other entry points that reach a
+    device (ON_CPU) are called with `device="cpu"` too. Returns the names
+    to put in that namespace: the kept classes and the renamed fixtures."""
     import ast
     import os
     import re
@@ -448,9 +482,11 @@ def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -
     body = re.sub(r"\bcadence_tpu\b", "cadence_tpu_torch", body)
     body = re.sub(r"\bOnebox\((\)?)", lambda mt: 'Onebox(device="cpu")' if mt.group(1)
                   else 'Onebox(device="cpu", ', body)
+    body = re.sub(rf"(?<![\w.])((?:\w+\.)*(?:{'|'.join(ON_CPU)}))\(", r"_on_cpu(\1)(", body)
     for name in fixtures:
-        body = re.sub(rf"(?<![.\w]){name}\b", f"{name}_{tag}", body)
-    namespace = {"__name__": f"tests.ported_{tag}", "__file__": path}
+        # (a keyword argument of the same name, `name=value`, stays)
+        body = re.sub(rf"(?<![.\w]){name}\b(?!=[^=])", f"{name}_{tag}", body)
+    namespace = {"__name__": f"tests.ported_{tag}", "__file__": path, "_on_cpu": _on_cpu}
     exec(compile(body, path, "exec"), namespace)
     out = {f"{name}_{tag}": namespace[f"{name}_{tag}"] for name in fixtures}
     for name, obj in namespace.items():
