@@ -519,9 +519,13 @@ class Snapshotter:
         return True
 
     def _gauges(self) -> None:
-        store = self.stores.snapshot
-        self.metrics.gauge(m.SCOPE_TPU_SNAPSHOT, m.M_SNAP_ENTRIES, float(len(store)))
-        self.metrics.gauge(m.SCOPE_TPU_SNAPSHOT, m.M_SNAP_BYTES, float(store.total_bytes))
+        # one method call, which a store served over the wire answers too
+        # (rpc/client.RemoteStores forwards methods, not len() or
+        # properties; the JAX package's len() raises there, after the
+        # record is written, and fails the rest of the flush)
+        st = self.stores.snapshot.stats()
+        self.metrics.gauge(m.SCOPE_TPU_SNAPSHOT, m.M_SNAP_ENTRIES, float(st["entries"]))
+        self.metrics.gauge(m.SCOPE_TPU_SNAPSHOT, m.M_SNAP_BYTES, float(st["bytes"]))
 
     def sweep(self, keys=None, force: bool = False) -> SweepReport:
         """Snapshot every resident key (or `keys`); `force` bypasses the

@@ -57,6 +57,17 @@ def generator_library_path() -> str:
     return _so_path("cadence_generator", (_SRC_GEN,))
 
 
+def wirec_cached() -> bool:
+    """True when the wirec library is already built for the current
+    sources: a look at the file its hash names, never a compiler run, so a
+    booting host can report whether it has the native encoder without
+    waiting on g++."""
+    try:
+        return os.path.exists(library_path())
+    except OSError:
+        return False
+
+
 def available() -> bool:
     """True when a C++ compiler is on PATH (the libraries can be built)."""
     return shutil.which("g++") is not None

@@ -12,6 +12,7 @@
                                      # migration_path and replication_apply
     python3 chip_smoke.py --onebox-only  # the build and onebox_path
     python3 chip_smoke.py --region-only  # the build and region_path
+    python3 chip_smoke.py --cluster-only  # the build and cluster_path
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
                                      # checkout's kernels A, B, C, D, E, G, H, I,
                                      # J, K, L and A's generator reader (and
@@ -301,11 +302,39 @@ Phases, one JSON line each:
      card with 0 divergent. Prints each step's wall, workflows/s, the
      recovery's runs/s, the prehydration report, the recovery report, the
      flush shapes of both regions' serving tiers and the launches.
+  9f. cluster_path, the wire cluster: a store server and service hosts as
+     processes (rpc/cluster.launch(device="cuda")), every host's serving
+     tier on the card; each process's output goes to a file under
+     chiprun_out/cluster_path/, and every process is stopped before the
+     phase returns. (a) configuration cluster-3h:
+     loadgen/scenarios.cluster_serving_scenario at the JAX package's
+     defaults (3 hosts, 8 shards, 12 s of 16 rps of the signal-dominant
+     mix over a pool of 16, 24 workers, seed 20260804, the last host
+     SIGKILLed at half the window, TTL 1.5 s, a snapshot every event), its
+     closing verify over the store on the card in this process; it holds
+     tests/test_cluster_serving.py's gates: the victim's shards taken,
+     steals > 0, hydration ratio >= 0.8, serving and migration parity
+     divergence 0, 0 divergent in the verify, the SLO and the doc's ok.
+     (b) configuration rebalance-2h: tests/test_cluster_serving.py's
+     planned rebalance (2 serving hosts, 8 shards, a pool of 12 workflows
+     with two signal rounds, quiesced, then add_host()): the new host
+     hydrates with migrated_in > 0 and 0 parity divergence, every resident
+     row it serves equals the oracle's CRC at its content address, and each
+     moved key's CRC read on a losing host equals the gainer's
+     (loadgen/scenarios.planned_rebalance_scenario). Prints events/s per
+     cluster and per pod, the p99 of the ops sent between the kill and the
+     steal's end beside the rest's, each step's wall, each host's flushes,
+     launches and launch shapes. The hosts' launches are read from each
+     host's admin_metrics (`tpu.launches`) right after its boot warm-up and
+     at the end of the leg; the path's are each host's difference (the
+     gainer's: its launches less the warm-up every host of the leg makes
+     alike) and the verify's in this process. Each host's warm-up is
+     checked apart.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
 rebuild_path, verify_path, resident_path, serving_path, onebox_path,
 fuzz_parity's two legs, migration_path, replication_apply, region_path,
-visibility_path)
+cluster_path, visibility_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched, or if it launched
 kernel H or F (FOLDED_KERNELS: the paths take their results from kernel
@@ -507,6 +536,15 @@ REGION_NEW_STARTS = 64
 #: the admin verifies (A, B with the counts, D)
 REGION_PATH_KERNELS = ("replay", "replay_tasks", "payload", "payload_counts", "verify_rows",
                        "rehome")
+#: cluster_path's hosts, in each leg's window after their boot warm-ups:
+#: the serving flushes (kernel G, A from the carried or cold state, B) and
+#: the hydrations (G; A and B where a snapshot lags its run); never H or F
+#: (check_launches)
+CLUSTER_HOST_KERNELS = ("rehome", "replay", "payload")
+#: the closing verify over the store, in this process: every run has a
+#: snapshot at its tip (the policy writes one every event), so the verify
+#: hydrates them into its pool with kernel G and serves them as exact hits
+CLUSTER_VERIFY_KERNELS = ("rehome",)
 
 
 _T0 = time.perf_counter()
@@ -2125,6 +2163,138 @@ def region_path(args):
     emit("region_path", config=config, hosts=ONEBOX_HOSTS, shards=ONEBOX_SHARDS, **out,
          launches=launches)
     check_launches(launches, "region_path", REGION_PATH_KERNELS)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The wire cluster: hosts as processes, each serving tier on the card
+# ---------------------------------------------------------------------------
+
+CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+
+
+class output_to:
+    """File descriptors 1 and 2 of this process, and so of every process it
+    spawns meanwhile, write to `path` while the context is open."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+
+    def __enter__(self):
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        self.saved = (os.dup(1), os.dup(2))
+        with open(self.path, "ab") as fh:
+            os.dup2(fh.fileno(), 1)
+            os.dup2(fh.fileno(), 2)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, saved in zip((1, 2), self.saved):
+            os.dup2(saved, fd)
+            os.close(saved)
+        return False
+
+
+def cluster_window(legs) -> tuple:
+    """The hosts' kernel launches of the legs: each host's boot warm-up
+    and its window (after the warm-up: the traffic, the steals and the
+    hydrations), summed over the hosts, with the hosts' launch shapes.
+    Fails if a host's launch report is missing."""
+    from cadence_tpu_torch.ops import _build
+
+    warm, window = dict.fromkeys(_build.launches, 0), dict.fromkeys(_build.launches, 0)
+    shapes = collections.Counter()
+    for leg, hosts in legs:
+        for n, h in hosts.items():
+            if h.get("error") or not h["launch_shapes"]:
+                fail(f"{leg}: {n}'s launch report is missing: {h.get('error')}")
+            for k, c in (h["warm_launches"] or {}).items():
+                warm[k] += c
+            for k, c in h["window_launches"].items():
+                window[k] += c
+            for k, shape, c in h["launch_shapes"]:
+                shapes[(k, tuple(shape))] += c
+    return warm, window, shapes
+
+
+def cluster_path(args):
+    """Phase 9f: configurations cluster-3h and rebalance-2h, the wire
+    cluster with every host's serving tier on the card. Returns the launch
+    counts of the run: every host's window (after its boot warm-up) and
+    this process's closing verify."""
+    import torch
+
+    from cadence_tpu_torch.loadgen.scenarios import (cluster_serving_scenario,
+                                                     planned_rebalance_scenario)
+    from cadence_tpu_torch.ops import _build
+
+    log_dir = os.path.join(CHIPRUN_OUT, "cluster_path")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the hosts share the card with this process
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with output_to(os.path.join(log_dir, "cluster-3h.log")):
+        doc = cluster_serving_scenario(device=DEVICE)
+    t_a = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    verify_launches = dict(_build.launches)
+    verify_shapes = collections.Counter(_build.launch_shapes)
+    fo, parity, verify = doc["failover"], doc["parity"], doc["verify"]
+    steals = fo["migrated_in"] + fo["cold_steals"] + fo["stale_snapshots"]
+    gates = {"victim_shards_taken": fo["victim_shards_taken"], "steals": steals > 0,
+             "hydration_ratio": fo["hydration_ratio"] >= 0.8,
+             "serving_divergence": parity["serving_divergence"] == 0,
+             "migration_divergence": parity["migration_divergence"] == 0,
+             "verify_divergent": verify["divergent"] == 0, "slo": doc["slo"]["ok"],
+             "ok": doc["ok"]}
+    if not all(gates.values()):
+        fail(f"cluster-3h: gates {gates}; failover {fo}; parity {parity}; verify {verify}; "
+             f"slo {doc['slo']}")
+    t0 = time.perf_counter()
+    with output_to(os.path.join(log_dir, "rebalance-2h.log")):
+        reb = planned_rebalance_scenario(device=DEVICE)
+    t_b = time.perf_counter() - t0
+    if not reb["ok"]:
+        fail(f"rebalance-2h: gates {reb['gates']}; migration {reb['migration_in']}")
+    legs = (("cluster-3h", doc["hosts"]), ("rebalance-2h", reb["hosts"]))
+    warm, window, host_shapes = cluster_window(legs)
+    launches = {k: verify_launches[k] + window[k] for k in _build.launches}
+    emit("cluster_path", config=["cluster-3h", "rebalance-2h"],
+         cluster_3h={"wall_s": t_a, "run": doc["run"], "gates": gates,
+                     "north_star": doc["north_star"], "latency": doc["latency"],
+                     "kill_window": doc["kill_window"], "per_op": doc["traffic"]["per_op"],
+                     "sent": doc["traffic"]["sent"], "errors": doc["traffic"]["errors"],
+                     "failover": fo, "parity": parity, "verify": verify,
+                     "verify_launches": verify_launches, "hosts": doc["hosts"]},
+         rebalance_2h={"wall_s": t_b, **reb}, host_logs=log_dir, host_warm_launches=warm,
+         host_window_launches=window, launches=launches)
+    check_launches(verify_launches, "cluster_path verify", CLUSTER_VERIFY_KERNELS,
+                   verify_shapes)
+    # the hosts' flushes, steals and hydrations, after their warm-ups
+    for leg, hosts in legs:
+        _, leg_window, _ = cluster_window([(leg, hosts)])
+        check_launches(leg_window, f"cluster_path {leg} hosts", CLUSTER_HOST_KERNELS,
+                       host_shapes)
+    gainer = reb["hosts"][reb["new_host"]]["window_launches"]
+    if not gainer.get("rehome"):
+        fail(f"rebalance-2h: the gainer's hydration launched {gainer}, not kernel G")
+    # apart: each host's boot warm-up launched G, A and B on the card (a
+    # host that reports itself warm having launched none failed its
+    # warm-up), alike on every host of a leg (the gainer's window is its
+    # launches less that warm-up)
+    for leg, hosts in legs:
+        warms = [h["warm_launches"] for h in hosts.values() if h["warm_launches"] is not None]
+        if not warms or any(w != warms[0] for w in warms) or not all(
+                warms[0].get(k) for k in CLUSTER_HOST_KERNELS):
+            fail(f"{leg}: the hosts' warm-up launches {warms}")
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as fh:
+            if "Traceback" in fh.read():
+                fail(f"cluster_path: a process logged a traceback in {name}")
     return launches
 
 
@@ -4932,6 +5102,8 @@ def main() -> int:
                    help="run the build and onebox_path, and stop")
     p.add_argument("--region-only", action="store_true",
                    help="run the build and region_path, and stop")
+    p.add_argument("--cluster-only", action="store_true",
+                   help="run the build and cluster_path, and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
@@ -4987,7 +5159,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # host corpora first, in a pool of spawned workers (the Onebox makes its own)
-    if not (args.visibility_only or args.onebox_only or args.region_only):
+    if not (args.visibility_only or args.onebox_only or args.region_only
+            or args.cluster_only):
         corp = generate(args)
         histories, oracle = corp["histories"], corp["oracle"]
         emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
@@ -5025,6 +5198,11 @@ def main() -> int:
         return 0
     if args.region_only:
         print(json.dumps({"launches": {"region_path": region_path(args)}}))
+        emit("launch_shapes_by_path", **SHAPES_BY_PATH)
+        print(smi)
+        return 0
+    if args.cluster_only:
+        print(json.dumps({"launches": {"cluster_path": cluster_path(args)}}))
         emit("launch_shapes_by_path", **SHAPES_BY_PATH)
         print(smi)
         return 0
@@ -5708,6 +5886,9 @@ def main() -> int:
     # --- 9e. region_path: the WAL, the warm failover and crash recovery
     region_launches = region_path(args)
 
+    # --- 9f. cluster_path: the wire cluster, every host's serving tier on the card
+    cluster_launches = cluster_path(args)
+
     # --- 10. kernel_vis: kernels J, K and L on the columnar table
     kernel_vis(args, dev, records)
 
@@ -5725,7 +5906,7 @@ def main() -> int:
              "fuzz_parity": fuzz_launches,
              "fuzz_scale": scale_launches, "migration_path": migration_launches,
              "replication_apply": replication_launches, "region_path": region_launches,
-             "visibility_path": visibility_launches}
+             "cluster_path": cluster_launches, "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
         if rec["name"] == "payload":

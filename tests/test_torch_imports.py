@@ -68,8 +68,12 @@ def test_source_imports_no_jax(path):
 @pytest.mark.parametrize("name", ["gen.fuzz", "gen.shrink", "engine.migration", "engine.replication",
                                   "engine.onebox", "engine.history_engine", "engine.frontend",
                                   "engine.matching", "engine.queues", "engine.workers",
-                                  "utils.hostprof", "utils.scrape", "models.deciders"])
+                                  "utils.hostprof", "utils.scrape", "models.deciders",
+                                  "rpc.wire", "rpc.client", "rpc.storeserver", "rpc.server",
+                                  "rpc.cluster", "loadgen.generator", "loadgen.scenarios",
+                                  "gen.cluster_chaos", "gen.interleave"])
 def test_the_walk_reaches_the_fuzz_and_cluster_modules(name):
-    """The grammar, its shrinker, shard migration, the replication pump and
-    the Onebox's modules are among the modules both tests above walk."""
+    """The grammar, its shrinker, shard migration, the replication pump, the
+    Onebox's modules, the wire cluster, the load harness and the two chaos
+    harnesses are among the modules both tests above walk."""
     assert f"cadence_tpu_torch.{name}" in set(_modules())

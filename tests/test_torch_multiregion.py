@@ -8,9 +8,11 @@ The files and what is left out of them:
 - tests/test_replication.py, through its `clusters` fixture: every class
   but TestStreamingReplay, a replay_streamed parity case that
   tests/test_torch_streaming.py already holds against the JAX package;
-- tests/test_multiregion.py's TestWarmPromotion (the warm failover's
-  prehydration through the migration tier); its TestReplicationSeamFuzz
-  waits for gen/interleave.py and its TestRegionFailoverWire for loadgen/;
+- tests/test_multiregion.py, every class: TestWarmPromotion (the warm
+  failover's prehydration through the migration tier),
+  TestReplicationSeamFuzz (gen/interleave.py's replication profile) and
+  TestRegionFailoverWire (loadgen/scenarios.py's region kill over two wire
+  regions, slow as in the reference);
 - tests/test_failovermanager.py, tests/test_redirection_domainrepl.py and
   tests/test_crosscluster.py, every class."""
 import pytest
@@ -29,8 +31,7 @@ globals().update(ported_reference(
     "test_replication.py", classes=("TestReplication", "TestFailover", "TestDeviceStandbyApply",
                                     "TestSnapshotShipping", "TestDLQObservability",
                                     "TestDomainBackpressure"), tag="replication"))
-globals().update(ported_reference("test_multiregion.py", classes=("TestWarmPromotion",),
-                                  tag="multiregion"))
+globals().update(ported_reference("test_multiregion.py", tag="multiregion"))
 globals().update(ported_reference("test_failovermanager.py", tag="failovermanager"))
 globals().update(ported_reference("test_redirection_domainrepl.py", tag="redirection"))
 globals().update(ported_reference("test_crosscluster.py", tag="crosscluster"))

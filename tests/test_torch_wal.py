@@ -13,10 +13,10 @@ Three kinds of test:
   RecoveryReport counts (the port on device="cpu"; tolerance 0);
 - the device rule: recover_stores with no device named means the card.
 
-Left out of tests/test_crashsim.py, each waiting for a module the port has
-not taken yet: TestSigkillAtCrashpoint.test_store_sigkilled_mid_append_recovers
-(rpc/cluster.py's store server) and TestFsck.test_wal_clean_migrates_v1_prefix
-and TestFsck.test_cli_fsck_verb (cli.py)."""
+Left out of tests/test_crashsim.py, waiting for cli.py:
+TestFsck.test_wal_clean_migrates_v1_prefix and TestFsck.test_cli_fsck_verb.
+Its TestSigkillAtCrashpoint runs a wire cluster's store server on the CPU
+(`launch(..., device="cpu")`)."""
 import dataclasses
 
 import pytest
@@ -38,13 +38,12 @@ def _fresh_port_globals():
 
 # -- the reference's own classes against the port ----------------------------
 
-#: methods of tests/test_crashsim.py that wait for rpc/ or cli.py
-RPC_OR_CLI = ("TestSigkillAtCrashpoint.test_store_sigkilled_mid_append_recovers",
-              "TestFsck.test_wal_clean_migrates_v1_prefix",
-              "TestFsck.test_cli_fsck_verb")
+#: methods of tests/test_crashsim.py that wait for cli.py
+WAITS_FOR_CLI = ("TestFsck.test_wal_clean_migrates_v1_prefix",
+                 "TestFsck.test_cli_fsck_verb")
 
 globals().update(ported_reference("test_durability.py", tag="durability"))
-globals().update(ported_reference("test_crashsim.py", tag="crashsim", leave_out=RPC_OR_CLI))
+globals().update(ported_reference("test_crashsim.py", tag="crashsim", leave_out=WAITS_FOR_CLI))
 
 
 # -- WAL parity: the same seeded workload writes the same bytes ---------------

@@ -152,16 +152,19 @@ def reset_port_tiers() -> None:
 
 def reset_port_globals() -> None:
     """Everything tests/conftest.py resets for the JAX package, for the
-    port: the default registry and tracer, the circuit breakers, the armed
-    crashpoint, the quota limiters, the telemetry plane, and every serving
-    drain thread, resident slab and visibility view."""
+    port: the default registry and tracer, the circuit breakers, the wire
+    chaos injector, the armed crashpoint, the quota limiters, the telemetry
+    plane, and every serving drain thread, resident slab and visibility
+    view."""
     from cadence_tpu_torch.engine import crashpoints, visibility_device
+    from cadence_tpu_torch.rpc import chaos
     from cadence_tpu_torch.utils import (circuitbreaker, flightrecorder, hostprof, metrics,
                                          quotas, timeseries, tracing)
 
     metrics.DEFAULT_REGISTRY.reset()
     tracing.DEFAULT_TRACER.reset()
     circuitbreaker.DEFAULT_BREAKERS.reset()
+    chaos.uninstall()
     crashpoints.uninstall()
     quotas.reset_all()
     flightrecorder.reset_all()
@@ -424,8 +427,15 @@ def host_kernel(tmp_dir, source: str, cut: str, harness: str, close: str = ""):
 
 
 #: the port's entry points besides Onebox that take a `device` (None: the
-#: card), which ported_reference calls with `device="cpu"`
-ON_CPU = ("ReplicatedClusters", "recover_stores", "seed_workload", "CrashSim")
+#: card), which ported_reference calls with `device="cpu"`: the wire
+#: cluster's launchers hand it to every process they spawn, the scenarios
+#: to their clusters, boxes and closing verifies, and replay_to_payload is
+#: the kernel replay a test holds a replicated history to
+ON_CPU = ("ReplicatedClusters", "recover_stores", "seed_workload", "CrashSim", "launch",
+          "launch_group", "overload_scenario", "serving_scenario", "cluster_serving_scenario",
+          "region_failover_scenario", "mixed_scenario", "visibility_scenario",
+          "cluster_campaign_scenario", "run_campaign", "live_campaign_predicate",
+          "interleave_scenario", "replication_interleave_scenario", "replay_to_payload")
 
 
 def _on_cpu(fn):
@@ -446,8 +456,10 @@ def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -
     `Test<Tag><Name>`, so that several ported files can share one test
     module's namespace. What is left out becomes blank lines, so each line
     keeps its number in tracebacks. The other entry points that reach a
-    device (ON_CPU) are called with `device="cpu"` too. Returns the names
-    to put in that namespace: the kept classes and the renamed fixtures."""
+    device (ON_CPU) are called with `device="cpu"` too, and the file's own
+    module marks (`pytestmark`, e.g. slow) go with its kept classes.
+    Returns the names to put in that namespace: the kept classes and the
+    renamed fixtures."""
     import ast
     import os
     import re
@@ -482,16 +494,22 @@ def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -
     body = re.sub(r"\bcadence_tpu\b", "cadence_tpu_torch", body)
     body = re.sub(r"\bOnebox\((\)?)", lambda mt: 'Onebox(device="cpu")' if mt.group(1)
                   else 'Onebox(device="cpu", ', body)
-    body = re.sub(rf"(?<![\w.])((?:\w+\.)*(?:{'|'.join(ON_CPU)}))\(", r"_on_cpu(\1)(", body)
+    body = re.sub(rf"(?<![\w.])(?<!def )((?:\w+\.)*(?:{'|'.join(ON_CPU)}))\(", r"_on_cpu(\1)(",
+                  body)
     for name in fixtures:
         # (a keyword argument of the same name, `name=value`, stays)
         body = re.sub(rf"(?<![.\w]){name}\b(?!=[^=])", f"{name}_{tag}", body)
     namespace = {"__name__": f"tests.ported_{tag}", "__file__": path, "_on_cpu": _on_cpu}
     exec(compile(body, path, "exec"), namespace)
     out = {f"{name}_{tag}": namespace[f"{name}_{tag}"] for name in fixtures}
+    module_marks = namespace.get("pytestmark", [])
+    module_marks = module_marks if isinstance(module_marks, list) else [module_marks]
     for name, obj in namespace.items():
         if (isinstance(obj, type) and name.startswith("Test")
                 and obj.__module__ == namespace["__name__"]):
             kept = f"Test{tag.capitalize()}{name[4:]}"
-            out[kept] = type(kept, (obj,), {})
+            cls = type(kept, (obj,), {})
+            for mark in module_marks:  # the file's own marks (slow, ...) go with it
+                cls = mark(cls)
+            out[kept] = cls
     return out
