@@ -501,10 +501,26 @@ def replay_corpus(histories: Sequence[Sequence[HistoryBatch]],
                   device=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host helper: encode histories, replay on `device`, and return
     (payload_rows, crc32s, errors) as numpy arrays (crc32s as np.uint32,
-    hashed on the device)."""
+    hashed on the device). Legs land in the default registry's
+    SCOPE_TPU_REPLAY histograms (utils/profiler), as the JAX package's
+    do: pack, h2d, kernel (replay, payload and CRC, synchronized),
+    readback."""
+    from ..utils import metrics as m
+    from ..utils.profiler import ReplayProfiler
+
     dev = resolve_device(device)
-    events = encode_corpus(histories, max_events)
-    rows, errors = replay_to_payload(events, layout, dev)
-    crcs = crc32_rows(rows)
-    return (rows.cpu().numpy(), crcs.cpu().numpy().astype(np.uint32),
-            errors.cpu().numpy())
+    prof = ReplayProfiler()
+    with prof.leg(m.M_PROFILE_PACK):
+        events = encode_corpus(histories, max_events)
+    with prof.leg(m.M_PROFILE_H2D):
+        device_events = torch.from_numpy(events).to(dev)
+        prof.h2d(events.nbytes)
+    with prof.leg(m.M_PROFILE_KERNEL):
+        rows, errors = replay_to_payload(device_events, layout, dev)
+        crcs = crc32_rows(rows)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with prof.leg(m.M_PROFILE_READBACK):
+        out = (rows.cpu().numpy(), crcs.cpu().numpy().astype(np.uint32),
+               errors.cpu().numpy())
+    return out

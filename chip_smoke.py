@@ -13,6 +13,9 @@
     python3 chip_smoke.py --onebox-only  # the build and onebox_path
     python3 chip_smoke.py --region-only  # the build and region_path
     python3 chip_smoke.py --cluster-only  # the build and cluster_path
+    python3 chip_smoke.py --cli-only  # the build and cli_path over a seeded WAL
+    python3 chip_smoke.py --region-only --cli-only  # region_path, then cli_path
+                                     # over its crashed region's WAL
     python3 chip_smoke.py --parent DIR [--variants [NAME,...]]  # also time another
                                      # checkout's kernels A, B, C, D, E, G, H, I,
                                      # J, K, L and A's generator reader (and
@@ -91,7 +94,7 @@ Phases, one JSON line each:
      and at 131,072 x 1,000 (the north star's chunks); each beside its
      bound and the launch floor (a one-element add_ timed the same way), as
      the host launches it and (device_ms) behind a queued spin kernel, the
-     card's time alone; kernel J over visibility_path's 2^20-row view
+     card's time alone; kernel J over visibility_path's 2^18-row view
      (its write burst's three Count plans, and bench.py's six queries as
      bitmaps) and kernel L through the view's own feed (the packed block's
      copy and the launch) at its drains' shapes (a 64-row bucket holding
@@ -114,7 +117,7 @@ Phases, one JSON line each:
      at B_SHAPES (next_shapes). Kernel E where the paths decode wirec
      bytes (kernel A's wirec reader's launches): a 64 x 16 flush of
      carried suffixes, the feeder's 4,096 x 123 chunk, the 40,960 x 123
-     corpus, and the fuzz corpus (28,672 x 117) packed whole and each of
+     corpus, and the fuzz corpus (7 x 1,024 workflows) packed whole and each of
      its seven profiles packed alone and tiled to its rows; each equal to
      its plain version and the lanes, also from a slab at an odd byte
      offset, and kernel A on its output equal to the fused reader
@@ -145,13 +148,14 @@ Phases, one JSON line each:
      oracle on the valid histories, and kernel A with tasks its plain
      version on every state and task-log tensor.
   5. fallback_ladder, bench.py's `_fallback_suite` configuration: the
-     `overflow` suite x 16,384 (seed 20260730, target_events 120) packed as
+     `overflow` suite x 4,096 (seed 20260730, target_events 120; cut from
+     bench.py's 16,384 for the time limit) packed as
      wirec and replayed, the capacity-flagged rows through
      EscalationLadder.escalate_wirec, the rest through the oracle; every
      final CRC must equal the oracle-only arbitration, and the dense
      `escalate` of the same rows must give the same rows and errors.
   6. rebuild_path: DeviceRebuilder(device="cuda").rebuild over the same
-     16,384 overflow jobs (a recovery storm of one shard's workflows):
+     4,096 overflow jobs (a recovery storm of one shard's workflows):
      chunks of task-emitting replay and payload rows through the bulk
      executor, the capacity-flagged jobs through the ladder's
      escalate_states, then hydration; every rebuilt state's payload row
@@ -159,8 +163,8 @@ Phases, one JSON line each:
      flagged ones by the ladder, none by the oracle. Prints each leg's
      seconds and jobs/s.
   7. verify_path: TPUReplayEngine(stores, chunk_workflows=4096).verify_all()
-     over Stores holding the 16,384 overflow histories (their live states
-     the MutableStates rebuild_path returned) and 2,048 histories of each
+     over Stores holding the 4,096 overflow histories (their live states
+     the MutableStates rebuild_path returned) and 1,024 histories of each
      of the four other suites (their live states the oracle's, built in
      the generation pool), 64 of the live states altered first (32 payload
      fields, 32 current-branch indices). `divergent` must be exactly the
@@ -172,7 +176,7 @@ Phases, one JSON line each:
      resident tier is on (its default): the first verify_all also admits
      every clean row to the pool (kernel G), whose entries, counted bytes
      and slab bytes are printed.
-  8. resident_path: the same 24,576 histories stored cut after the first
+  8. resident_path: the same 8,192 histories stored cut after the first
      ceil(2/3) of their batches, a flooded overflow history before its
      flood (live states: the oracle's at the cut),
      through one engine: (a) a cold verify_all admits every clean key;
@@ -187,13 +191,13 @@ Phases, one JSON line each:
      keys written and give (c)'s divergent and fallback lists (escalated:
      (c)'s plus the overflowing keys (c) served that the sweep did not
      write: widened entries, altered live states).
-  9. serving_path: one ServingScheduler over 4,096 workflows (1,024 each of
+  9. serving_path: one ServingScheduler over 2,048 workflows (512 each of
      echo_signal, timer_retry, concurrent_child and overflow) stored up to
      their last 8 batches (a flooded overflow history up to the batch
      before its flood);
      eight threads commit each remaining batch as a
      transaction (append to the store, upsert the oracle's state, submit
-     with the batch), about 33,000 transactions, a workflow's next one
+     with the batch), about 16,800 transactions, a workflow's next one
      once its previous ticket resolved. Parity divergence must be
      0, every ticket resolved, a not-ok ticket only a `device-error:` code,
      and every resident entry's payload and device state the oracle's final
@@ -212,31 +216,31 @@ Phases, one JSON line each:
      negative index) through L, each equal to its plain version (tolerance
      0) and timed beside its bound.
  11. visibility_path: Stores().visibility with CADENCE_TPU_VISIBILITY=1 on
-     the card over bench.py's population at 524,288 records and a `ties`
+     the card over bench.py's population at 131,072 records and a `ties`
      domain of 4,096 records on 16 start times: with parity on, the six
      queries as Count and List, a page walk of the ties domain at 100 a
      page (every page escalates) and a string-ordering query that must
      count as fallback-predicate; with parity off, Count and List timed
-     beside the host's Count (equal); then 4,096 closes, 1,024 upserts of a
+     beside the host's Count (equal); then 1,024 closes, 1,024 upserts of a
      new attribute (a restage) and 512 deletes, each read back by a Count
      with parity on. Parity divergence must be 0. Prints the shape of
      every J, K and L launch of the run (launch_shapes). With --parent, the
      parent's J (count and bitmap), K (k = 1, 101, 128, 4,096) and L are
      held equal and timed beside this tree's in kernel_vis.
-  9a. onebox_path, configuration onebox-2k (run after serving_path): the
+  9a. onebox_path, configuration onebox-512 (run after serving_path): the
      port's Onebox(num_hosts=2, num_shards=8, device="cuda") with its
      serving tier on and the device visibility tier off, one domain and
-     task list. 2,048 workflows started through the frontend before any
+     task list. 512 workflows started through the frontend before any
      poll, tests/test_onebox.py's seven decider kinds in turn (echo,
      chained activities x5, signal x3, timer of 5 s, 4 concurrent
      activities, a child workflow, cancellation), drained by
      tests/taskpoller.py's loop (OneboxPoller); the signals and cancel
      requests through the frontend and the clock advanced 6 s, drained
-     again; then 64 closed chained workflows reset to the close of their
+     again; then 32 closed chained workflows reset to the close of their
      third decision (frontend.reset_workflow_execution) and drained to
      completion. Every workflow must close with its decider's status, the
      serving queue settle with 0 parity divergence and 0 busy rejections,
-     each execution's last ticket resolve ok and parity_ok, the 64 resets
+     each execution's last ticket resolve ok and parity_ok, the 32 resets
      rebuild on the card (DeviceRebuilder, none by the oracle), and
      box.scanner.run_once() and a restarted host's scan (a fresh engine
      over the same stores, the keys no snapshot covers cold) each verify
@@ -252,12 +256,12 @@ Phases, one JSON line each:
      trees; ok, 0 of every divergence, and its workflow, event, event-kind,
      fork and decision-coverage counts equal to the run of record
      (FUZZ_RUN, FUZZ_DECISIONS). (b) each of the seven `fuzz:<profile>`
-     suites x 4,096 workflows (seed 20260730, target_events 120, made in
+     suites x 1,024 workflows (seed 20260730, target_events 120, made in
      the generation pool) through replay_corpus and, packed as wirec,
      replay_wirec_to_crc: 0 errors, the wirec CRCs equal to the int64
      path's, 256 sampled workflows a profile equal to the oracle; each
      path's events/s.
-  9c. migration_path: Stores holding 4,096 workflows of the five suites
+  9c. migration_path: Stores holding 2,048 workflows of the five suites
      (every 16th whole, so closed; the rest cut after ceil(2/3) of their
      batches); host 1's TPUReplayEngine warmed through verify_all, then
      MigrationManager.migrate_out of 4 of 8 shards (snapshots through the
@@ -268,7 +272,7 @@ Phases, one JSON line each:
      to the oracle's payload_row byte for byte, only the appended events
      replayed. Prints the hydrate wall and workflows/s.
   9d. replication_apply: an active Stores whose ReplicationPublisher
-     publishes every batch of 4,096 open workflows of the five suites
+     publishes every batch of 2,048 open workflows of the five suites
      (target_events 40), and a standby Stores behind a
      ReplicationTaskProcessor with the port's engine (tpu=...): the first
      half of each history drains (every key counted cold on the device),
@@ -279,12 +283,12 @@ Phases, one JSON line each:
      the oracle's; the standby's histories and states equal the active's.
      The same drain over 512 of the workflows with
      CADENCE_TPU_REPL_DEVICE=0 launches no kernel.
-  9e. region_path, configuration region-2k: ReplicatedClusters(num_hosts=2,
+  9e. region_path, configuration region-512: ReplicatedClusters(num_hosts=2,
      num_shards=8, device="cuda"), two regions of the JAX package's default
      cluster, the active one's stores a SQLite WAL (open_durable_stores on
      a .db path in a temporary directory), the serving tier on, device
      visibility off, snapshot shipping on at the port's default policy (8 /
-     32 events); one global domain and 2,048 workflows of onebox-2k's seven
+     32 events); one global domain and 512 workflows of onebox-512's seven
      decider kinds in turn. (a) every workflow started on the active region
      and driven through its decisions (activities, signals, cancels and
      timers left waiting), replication drained; (b) FailoverManager.
@@ -330,11 +334,37 @@ Phases, one JSON line each:
      gainer's: its launches less the warm-up every host of the leg makes
      alike) and the verify's in this process. Each host's warm-up is
      checked apart.
+  9g. cli_path, configuration cli-region: the operator CLI
+     (cadence_tpu_torch/cli.py) on the card over a copy of region_path's
+     crashed old active SQLite WAL (under --cli-only, a WAL that
+     engine/crashsim.seed_workload records, CLI_SEED_WORKFLOWS runs).
+     Each step timed: (a) a fresh process runs `python -m
+     cadence_tpu_torch --device cuda admin describe-cluster`, then
+     `domain list` (the cold read, boot included), checked to load
+     nothing of JAX or of the JAX package (as (f)'s is); (b) through
+     cli.main in this process, `domain register` of a new local domain,
+     then CLI_WRITES `workflow start` and as many `workflow signal` calls
+     in it, each a fresh recovery of the WAL, as the CLI makes one; (c)
+     `admin verify` and `admin scan`: ok, 0 divergent, every run the
+     handler verifies (the open ones: the WAL was written on a test clock,
+     so (b)'s first pump fires every closed run's retention timer at the
+     wall clock and deletes it) verified on the card;
+     (d) `admin snapshot --sweep` and `admin resident --passes 2` (the
+     warm hit rate); (e) `wal fsck`: 0 findings; (f) a fresh process runs
+     `admin verify` and `workflow list` of the new domain: every run
+     verified on the card, 0 divergent, every run of (b) listed, and each
+     read back from the WAL with its one signal; (g) `admin profile --out
+     chiprun_out/cli_trace` at CLI_PROFILE: the torch.profiler trace is
+     read back, its CUDA kernels counted by name (kernel A's wirec reader,
+     B and C must be there by their CUDA names), and the share of the
+     traced window in which a kernel ran (the union of the kernel
+     intervals) printed. The in-process verbs' launches are counted by
+     step.
 Each driven path (main path, wirec_path, feeder_path, north_star's timed
 chunk loops, north_star_parity, host_generator, fallback_ladder,
 rebuild_path, verify_path, resident_path, serving_path, onebox_path,
 fuzz_parity's two legs, migration_path, replication_apply, region_path,
-cluster_path, visibility_path)
+cluster_path, cli_path, visibility_path)
 runs with every launch count set to 0 just before it and read just after,
 and fails if a kernel of that path was never launched, or if it launched
 kernel H or F (FOLDED_KERNELS: the paths take their results from kernel
@@ -349,6 +379,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import os
 import random
@@ -370,7 +401,11 @@ INT_OPS_PER_CLOCK_PER_SM = 64
 SEED = 20260730
 TARGET_EVENTS = 120
 REPS = 5  # timed runs per kernel, after one warm-up; the median is kept
-PLAIN_REPS = 3  # timed runs of a plain replay, which takes a second or more
+#: timed runs of a plain version that takes a second or more (one: its time
+#: only sets the kernel's speed-up, and a median of several cost the script
+#: tens of seconds on a slow host); its warm-up is skipped where the same
+#: call has just run for the equality check
+PLAIN_REPS = 1
 DEVICE = "cuda"
 #: the kernels each driven path must launch (ops/_build.launches keys)
 #: (payload_fit and payload_counts: kernel B's launches with its fit or
@@ -434,10 +469,13 @@ SERVING_SUITES = ("echo_signal", "timer_retry", "concurrent_child", "overflow")
 SERVING_THREADS = 8
 #: kernel_vis: rows of the columnar table (the view's capacity at 16M
 #: records), and visibility_path: its population size (bench.py's 1M cut
-#: to half, the first depth the script's time limit gives up when a phase
-#: is added) and seed
+#: to an eighth, the first depth the script's time limit gives up when a
+#: phase is added) and seed
 VIS_ROWS = 1 << 24
-VIS_RECORDS = 1 << 19
+VIS_RECORDS = 1 << 17
+#: visibility_path's write burst: the ties records closed, each read back
+#: by a Count with parity on (cut from all 4,096 for the time limit)
+VIS_CLOSES = 1024
 VIS_SEED = 20260804
 #: kernels J, K and L, which visibility_path must launch
 VISIBILITY_PATH_KERNELS = ("vis_mask", "vis_topk", "vis_apply")
@@ -469,13 +507,15 @@ FUZZ_DECISIONS = {
 FUZZ_PARITY_KERNELS = ("replay", "replay_wirec", "payload", "payload_counts", "crc32",
                        "verify_rows", "rehome")
 #: fuzz_parity (b): each profile (`fuzz:<profile>`) x FUZZ_PER_PROFILE at
-#: the main path's seed and target_events, 256 sampled a profile
-FUZZ_PER_PROFILE = 4096
+#: the main path's seed and target_events, 256 sampled a profile (cut from
+#: 4,096 for the script's time limit)
+FUZZ_PER_PROFILE = 1024
 FUZZ_SCALE_KERNELS = ("replay", "payload", "crc32", "replay_wirec")
 #: migration_path: MIG_WORKFLOWS of the five suites over the reference
 #: Onebox's 8 history shards, half of them moved; every 16th workflow is
-#: stored closed, the rest cut after ceil(2/3) of their batches
-MIG_WORKFLOWS = 4096
+#: stored closed, the rest cut after ceil(2/3) of their batches (cut from
+#: 4,096 for the script's time limit)
+MIG_WORKFLOWS = 2048
 MIG_SHARDS = 8
 #: the hydration's grouped from-state launches: G's gather, A from the
 #: carried states, B
@@ -484,8 +524,9 @@ MIGRATION_PATH_KERNELS = ("replay", "payload", "rehome")
 #: history (depth cut from 120: each batch is a replication task the host
 #: replicator applies one by one), their last batch held back so they stay
 #: open; REPL_SHIPPED of them reach the standby's pool through shipped
-#: snapshots; the kill-switch leg drains REPL_KILL_SWITCH of them
-REPL_WORKFLOWS = 4096
+#: snapshots; the kill-switch leg drains REPL_KILL_SWITCH of them (cut from
+#: 4,096 for the script's time limit)
+REPL_WORKFLOWS = 2048
 REPL_EVENTS = 40
 REPL_SHIPPED = 256
 REPL_KILL_SWITCH = 512
@@ -493,12 +534,13 @@ REPLICATION_APPLY_KERNELS = ("replay", "payload", "rehome")
 #: resident_path (d) snapshots every fourth resident key (the sweep's depth,
 #: cut for the script's time limit: the whole pool took 70.7-118.4 s)
 RESIDENT_SWEEP_EVERY = 4
-#: onebox_path, configuration onebox-2k: the JAX package's default cluster
-#: (2 history hosts, 8 shards), one domain and task list, 2,048 workflows of
-#: tests/test_onebox.py's seven decider kinds in turn, then 64 resets of
+#: onebox_path, configuration onebox-512: the JAX package's default cluster
+#: (2 history hosts, 8 shards), one domain and task list, 512 workflows of
+#: tests/test_onebox.py's seven decider kinds in turn, then 32 resets of
 #: closed chained workflows; the serving tier on, device visibility off
-ONEBOX_WORKFLOWS = 2048
-ONEBOX_RESETS = 64
+#: (cut from 2,048 and 64, then from 1,024, for the script's time limit)
+ONEBOX_WORKFLOWS = 512
+ONEBOX_RESETS = 32
 ONEBOX_HOSTS = 2
 ONEBOX_SHARDS = 8
 ONEBOX_DOMAIN = "onebox-domain"
@@ -517,12 +559,13 @@ ONEBOX_RESET_DECISION = 3
 #: is skipped), so no Onebox transaction reaches it
 ONEBOX_PATH_KERNELS = ("replay", "replay_tasks", "payload", "payload_counts", "verify_rows",
                        "rehome")
-#: region_path, configuration region-2k: two regions, each the JAX package's
+#: region_path, configuration region-512: two regions, each the JAX package's
 #: default cluster (2 history hosts, 8 shards), the active one logging to a
-#: SQLite WAL; one global domain and 2,048 workflows of onebox-2k's seven
+#: SQLite WAL; one global domain and 512 workflows of onebox-512's seven
 #: decider kinds in turn; the serving tier on, device visibility off,
 #: snapshot shipping on at the port's default policy (8 / 32 events)
-REGION_WORKFLOWS = 2048
+#: (cut from 2,048 for the script's time limit)
+REGION_WORKFLOWS = 512
 REGION_DOMAIN = "region-domain"
 #: signal workflows started on the promoted region after the flip and left
 #: waiting for their signals when the old active region crashes: young
@@ -545,6 +588,21 @@ CLUSTER_HOST_KERNELS = ("rehome", "replay", "payload")
 #: snapshot at its tip (the policy writes one every event), so the verify
 #: hydrates them into its pool with kernel G and serves them as exact hits
 CLUSTER_VERIFY_KERNELS = ("rehome",)
+#: cli_path: the operator's new local domain, its workflow starts (each
+#: signalled once, one CLI call each), the seeded WAL's runs under
+#: --cli-only, and `admin profile`'s --workflows and --events
+CLI_DOMAIN = "cli-domain"
+CLI_TASK_LIST = "cli-tl"
+CLI_WRITES = 4
+CLI_SEED_WORKFLOWS = 512
+CLI_PROFILE = (1024, 100)
+#: the in-process verbs launch A (the verifies' young runs), B, D and G
+#: (the snapshot rows and admits); the profile A's wirec reader, B and C
+CLI_PATH_KERNELS = ("replay", "replay_wirec", "payload", "crc32", "verify_rows", "rehome")
+#: the CUDA names of kernel A's wirec reader (its template's first
+#: argument, READ_WIREC = 2), B and C, which the profile's trace must show
+CLI_TRACE_KERNELS = {"replay_wirec": r"replay_kernel<\s*(\(Reader\))?2\s*,",
+                     "payload": r"\bpayload_kernel\b", "crc32": r"\bcrc32_kernel\b"}
 
 
 _T0 = time.perf_counter()
@@ -596,16 +654,37 @@ def _oracle_tasks(batches):
 def _gen_chunk(task):
     """One pool task: (suite, first index, count, sampled indices, with
     task streams) → (histories, {index: (oracle row, branch[, streams])},
-    the histories serialized by the wire codec for the feeder)."""
+    the histories serialized by the wire codec for the feeder, their lanes
+    (encode_corpus) and the seconds that encode took)."""
     from cadence_tpu_torch.core.codec import serialize_history
     from cadence_tpu_torch.gen.corpus import generate_history
+    from cadence_tpu_torch.ops.encode import encode_corpus
 
     suite, start, count, sample, with_tasks = task
     hs = [generate_history(suite, SEED, i, TARGET_EVENTS) for i in range(start, start + count)]
     oracle = {i: _oracle_row(hs[i - start]) + ((_oracle_tasks(hs[i - start]),)
                                                if with_tasks else ())
               for i in sample}
-    return hs, oracle, [serialize_history(h) for h in hs]
+    t0 = time.perf_counter()
+    lanes = encode_corpus(hs)
+    return hs, oracle, [serialize_history(h) for h in hs], lanes, time.perf_counter() - t0
+
+
+def _stack_lanes(blocks):
+    """The pool's [w, e, L] lane blocks as one [W, E, L] corpus, each
+    padded to the longest as encode_corpus pads (zeros, event type -1)."""
+    import numpy as np
+
+    from cadence_tpu_torch.ops.encode import LANE_EVENT_TYPE
+
+    out = np.zeros((sum(b.shape[0] for b in blocks), max(b.shape[1] for b in blocks),
+                    blocks[0].shape[2]), np.int64)
+    out[:, :, LANE_EVENT_TYPE] = -1
+    row = 0
+    for b in blocks:
+        out[row:row + b.shape[0], :b.shape[1]] = b
+        row += b.shape[0]
+    return out
 
 
 def _closed_row(lanes):
@@ -943,6 +1022,10 @@ def generate(args):
     t0 = time.perf_counter()
     if load_generator() is None:  # built here once, before the workers load it
         fail("generate: no g++ to build the host generator")
+    # the results are millions of objects that live to the end of the run:
+    # no collection while they are unpickled, and none walks them afterwards
+    # (gc.freeze, below), which every later host phase would pay for
+    gc.disable()
     with mp.get_context("spawn").Pool(os.cpu_count()) as pool:
         pending = [pool.map_async(fn, ts, chunksize=1) for fn, ts in (
             (_gen_chunk, tasks), (_gen_chunk, otasks), (_gen_chains, ctasks), (_gen_trees, ttasks),
@@ -952,9 +1035,9 @@ def generate(args):
         (main_parts, over_parts, chain_parts, tree_parts, state_parts, cut_parts,
          serving_parts, ns_parts, native_parts, fuzz_parts, mig_parts,
          repl_parts) = (p.get() for p in pending)
-    histories, oracle = _concat(tasks, [(h, o) for h, o, _ in main_parts])
-    blobs = [b for _, _, part in main_parts for b in part]
-    over_h, over_oracle = _concat(otasks, [(h, o) for h, o, _ in over_parts])
+    histories, oracle = _concat(tasks, [part[:2] for part in main_parts])
+    blobs = [b for part in main_parts for b in part[2]]
+    over_h, over_oracle = _concat(otasks, [part[:2] for part in over_parts])
     chain_lanes, chain_oracle = _concat(ctasks, chain_parts)
     fuzz, fuzz_oracle = {}, {}
     for task, (hs, lanes, orc) in zip(ftasks, fuzz_parts):  # a profile's tasks in order
@@ -962,9 +1045,15 @@ def generate(args):
         got[0].extend(hs)
         got[1].extend(lanes)
         fuzz_oracle.update({(task[0], i): v for i, v in orc.items()})
-    return {
+    corpora = {
         "histories": histories, "oracle": oracle,
+        # the main path's comparison input, encoded in the pool (encode_s:
+        # the tasks' encode seconds summed, one core's time for the corpus)
+        "lanes": _stack_lanes([part[3] for part in main_parts]) if main_parts else None,
+        "encode_s": sum(part[4] for part in main_parts),
         "overflow": over_h, "overflow_oracle": over_oracle,
+        "overflow_lanes": (_stack_lanes([part[3] for part in over_parts]) if over_parts
+                           else None),
         "chains": np.stack(chain_lanes) if chain_lanes else np.zeros((0, 1, 18), np.int64),
         "chain_oracle": chain_oracle,
         "trees": (np.stack([x for part in tree_parts for x in part]) if tree_parts
@@ -979,8 +1068,11 @@ def generate(args):
         "fuzz": fuzz, "fuzz_oracle": fuzz_oracle,
         "migration": [w for part in mig_parts for w in part],
         "replication": [w for part in repl_parts for w in part],
-        "seconds": time.perf_counter() - t0,
     }
+    gc.freeze()
+    gc.enable()
+    corpora["seconds"] = time.perf_counter() - t0
+    return corpora
 
 
 # ---------------------------------------------------------------------------
@@ -1808,7 +1900,7 @@ def serving_summary(stats: dict, flushes, append_shapes, cold_shapes) -> dict:
 
 
 def onebox_run(workflows: int, resets: int, device) -> dict:
-    """configuration onebox-2k on `device`: the cluster, `workflows` started
+    """configuration onebox-512 on `device`: the cluster, `workflows` started
     before any poll, drained; the signals, cancel requests and the timer's
     clock; `resets` closed chained workflows reset to a decision boundary
     and drained again; the serving queue settled and the scanner run. Every
@@ -1938,7 +2030,7 @@ def onebox_run(workflows: int, resets: int, device) -> dict:
 
 
 def onebox_path(args):
-    """Phase 9a: configuration onebox-2k through the port's Onebox on the
+    """Phase 9a: configuration onebox-512 through the port's Onebox on the
     card. Returns the launch counts of the run."""
     import torch
 
@@ -1950,14 +2042,14 @@ def onebox_path(args):
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     check_launches(launches, "onebox_path", ONEBOX_PATH_KERNELS)
-    config = "onebox-2k" if args.onebox_workflows == ONEBOX_WORKFLOWS else "small"
+    config = "onebox-512" if args.onebox_workflows == ONEBOX_WORKFLOWS else "small"
     emit("onebox_path", config=config, hosts=ONEBOX_HOSTS, shards=ONEBOX_SHARDS, **out,
          launches=launches)
     return launches
 
 
 def region_run(workflows: int, device, workdir: str) -> dict:
-    """configuration region-2k on `device`: (a) the workflows started on
+    """configuration region-512 on `device`: (a) the workflows started on
     the active region and driven through their decisions (activities,
     signals, cancels and timers left waiting), replication drained, a
     deploy warm-up snapshot sweep shipped; (b) FailoverManager.
@@ -2144,9 +2236,11 @@ def region_run(workflows: int, device, workdir: str) -> dict:
     }
 
 
-def region_path(args):
-    """Phase 9e: configuration region-2k through the port's two regions on
-    the card. Returns the launch counts of the run."""
+def region_path(args, keep_wal=None):
+    """Phase 9e: configuration region-512 through the port's two regions on
+    the card. Returns the launch counts of the run; the crashed old active
+    region's WAL is copied to `keep_wal` when given (cli_path's input)."""
+    import sqlite3
     import tempfile
 
     import torch
@@ -2159,7 +2253,15 @@ def region_path(args):
         out = region_run(args.region_workflows, DEVICE, workdir)
         torch.cuda.synchronize()
         launches = dict(_build.launches)
-    config = "region-2k" if args.region_workflows == REGION_WORKFLOWS else "small"
+        if keep_wal:
+            # through SQLite's backup: the log's own WAL file holds what
+            # no checkpoint has moved into the database yet
+            src, dst = (sqlite3.connect(os.path.join(workdir, "region-active.db")),
+                        sqlite3.connect(keep_wal))
+            src.backup(dst)
+            src.close()
+            dst.close()
+    config = "region-512" if args.region_workflows == REGION_WORKFLOWS else "small"
     emit("region_path", config=config, hosts=ONEBOX_HOSTS, shards=ONEBOX_SHARDS, **out,
          launches=launches)
     check_launches(launches, "region_path", REGION_PATH_KERNELS)
@@ -2295,6 +2397,221 @@ def cluster_path(args):
         with open(os.path.join(log_dir, name), errors="replace") as fh:
             if "Traceback" in fh.read():
                 fail(f"cluster_path: a process logged a traceback in {name}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The operator CLI on the card over a crashed region's WAL
+# ---------------------------------------------------------------------------
+
+#: a fresh interpreter that runs `python -m cadence_tpu_torch` once for
+#: each argv of its JSON argument (runpy, as `-m` runs it), then prints
+#: the first non-zero exit code and the modules of JAX or of the JAX
+#: package it loaded, as its last line
+CLI_CHILD = """\
+import json, runpy, sys
+code = 0
+for argv in json.loads(sys.argv[1]):
+    sys.argv = ["cadence_tpu_torch"] + argv
+    try:
+        runpy.run_module("cadence_tpu_torch", run_name="__main__", alter_sys=True)
+    except SystemExit as exc:
+        code = code or exc.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cadence_tpu") or m.startswith("jax"))
+print(json.dumps({"exit": code, "forbidden": bad}))
+"""
+
+
+def json_docs(text: str) -> list:
+    """The JSON documents printed one after another in `text`."""
+    dec, docs, i = json.JSONDecoder(), [], 0
+    while True:
+        while i < len(text) and text[i].isspace():
+            i += 1
+        if i == len(text):
+            return docs
+        doc, i = dec.raw_decode(text, i)
+        docs.append(doc)
+
+
+def cli_child(wal: str, argvs, what: str) -> tuple:
+    """(the CLI's JSON outputs, seconds) of a fresh process running each
+    argv over `wal` on the card; fails on a non-zero exit or a module of
+    JAX or of the JAX package in the child."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD,
+         json.dumps([["--wal", wal, "--device", DEVICE] + a for a in argvs])],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    docs = json_docs(done.stdout) if done.returncode == 0 else []
+    tail = docs.pop() if docs else {}
+    if done.returncode or tail.get("exit") or tail.get("forbidden") or len(docs) != len(argvs):
+        fail(f"cli_path {what}: the child exited {done.returncode} ({tail}), "
+             f"{len(docs)} outputs of {len(argvs)}: {done.stderr[-2000:]}")
+    return docs, seconds
+
+
+def busy_share(trace: dict) -> tuple:
+    """(the CUDA kernels' launch counts by name, the share of the traced
+    window in which a kernel ran: the union of the kernel intervals over
+    the window from the trace's first event to its last)."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return {}, 0.0
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, cursor = 0.0, start
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], cursor), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            cursor = hi
+    return dict(collections.Counter(e["name"] for e in kernels)), busy / (end - start)
+
+
+def cli_path(args, wal: str, config: str):
+    """Phase 9g: configuration cli-region, the operator CLI on the card over
+    `wal` (region_path's crashed old active WAL; or a seeded one, config
+    cli-seeded). Returns the launch counts of the in-process verbs."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import torch
+
+    from cadence_tpu_torch import cli
+    from cadence_tpu_torch.engine.durability import recover_stores
+    from cadence_tpu_torch.ops import _build
+
+    launches = dict.fromkeys(_build.launches, 0)
+    shapes, by_step, walls = collections.Counter(), {}, {}
+
+    def run(step: str, argv) -> dict:
+        """One in-process CLI call over `wal`: its JSON output; its
+        launches counted under `step`."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--wal", wal, "--device", DEVICE] + argv)
+        torch.cuda.synchronize()
+        step_launches = by_step.setdefault(step, dict.fromkeys(_build.launches, 0))
+        for k, n in _build.launches.items():
+            launches[k] += n
+            step_launches[k] += n
+        shapes.update(_build.launch_shapes)
+        if rc:
+            fail(f"cli_path ({step}): {' '.join(argv)} exited {rc}: {out.getvalue()[-2000:]}")
+        return json.loads(out.getvalue())
+
+    t_phase = time.perf_counter()
+    # (a) the cold read: a fresh process, boot included
+    (cluster, domains), walls["a_cold_read_s"] = cli_child(
+        wal, [["admin", "describe-cluster"], ["domain", "list"]], "(a) the cold read")
+    # (b) the operator's writes, each call a fresh recovery of the WAL
+    t0 = time.perf_counter()
+    run("b_writes", ["domain", "register", "--name", CLI_DOMAIN])
+    wids = [f"cli-wf-{i}" for i in range(CLI_WRITES)]
+    for wid in wids:
+        run("b_writes", ["workflow", "start", "--domain", CLI_DOMAIN, "--workflow-id", wid,
+                         "--type", "signal", "--task-list", CLI_TASK_LIST])
+    for wid in wids:
+        run("b_writes", ["workflow", "signal", "--domain", CLI_DOMAIN, "--workflow-id", wid,
+                         "--name", "cli-signal"])
+    walls["b_writes_s"] = time.perf_counter() - t0
+    # (c) verify and scan
+    t0 = time.perf_counter()
+    verify = run("c_verify", ["admin", "verify"])
+    walls["c_verify_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = run("c_scan", ["admin", "scan"])
+    walls["c_scan_s"] = time.perf_counter() - t0
+    # the runs the handler verifies: the open ones (the WAL was written on
+    # a test clock, so (b)'s first pump fired every closed run's retention
+    # timer at the wall clock and deleted it)
+    total = verify["total"]
+    if (not verify["ok"] or verify["divergent"] or verify["verified_on_device"] != total
+            or total < CLI_WRITES):
+        fail(f"cli_path (c): admin verify {verify}")
+    if not scan["ok"] or scan["state_divergent"] or scan["executions"] < total:
+        fail(f"cli_path (c): admin scan {scan} beside {total} verified")
+    # (d) the snapshot sweep, then the resident pool's warm hit rate
+    t0 = time.perf_counter()
+    sweep = run("d_snapshot_sweep", ["admin", "snapshot", "--sweep"])
+    walls["d_snapshot_sweep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resident = run("d_resident", ["admin", "resident", "--passes", "2"])
+    walls["d_resident_s"] = time.perf_counter() - t0
+    warm = resident["passes"][1]
+    if (sweep["sweep"]["verified_on_device"] != total or not warm["ok"]
+            or warm["verified_on_device"] != total):
+        fail(f"cli_path (d): sweep {sweep.get('sweep')}, resident passes {resident['passes']}")
+    # (e) fsck
+    t0 = time.perf_counter()
+    fsck = run("e_fsck", ["wal", "fsck"])
+    walls["e_fsck_s"] = time.perf_counter() - t0
+    if not fsck["ok"] or fsck["findings"]:
+        fail(f"cli_path (e): wal fsck {fsck['findings'][:3]}")
+    # (f) the warm restart: a fresh process verifies after the sweep; every
+    # write of (b) listed there and read back from the WAL with its signal
+    (reverify, listed), walls["f_restart_verify_s"] = cli_child(
+        wal, [["admin", "verify"], ["workflow", "list", "--domain", CLI_DOMAIN]],
+        "(f) admin verify")
+    if (not reverify["ok"] or reverify["divergent"] or reverify["total"] != total
+            or reverify["verified_on_device"] != total):
+        fail(f"cli_path (f): admin verify after the restart {reverify} of {total}")
+    if sorted(r["workflow_id"] for r in listed) != sorted(wids):
+        fail(f"cli_path (f): the new domain lists {len(listed)} runs of {len(wids)}")
+    t0 = time.perf_counter()
+    stores, _ = recover_stores(wal, verify_on_device=False, rebuild_on_device=False)
+    domain_id = stores.domain.by_name(CLI_DOMAIN).domain_id
+    signals = {}
+    for wid in wids:
+        run_id = stores.execution.get_current_run_id(domain_id, wid)
+        signals[wid] = stores.execution.get_workflow(domain_id, wid, run_id) \
+            .execution_info.signal_count
+    stores.wal.close()
+    walls["f_read_back_s"] = time.perf_counter() - t0
+    if any(n != 1 for n in signals.values()):
+        fail(f"cli_path (f): signal counts read back {signals}")
+    # (g) the profile: the trace read back
+    trace_dir = os.path.join(CHIPRUN_OUT, "cli_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    prof = run("g_profile", ["admin", "profile", "--out", trace_dir, "--workflows",
+                             str(CLI_PROFILE[0]), "--events", str(CLI_PROFILE[1])])
+    walls["g_profile_s"] = time.perf_counter() - t0
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1 or prof["platform"] != "gpu":
+        fail(f"cli_path (g): traces {traces}, platform {prof['platform']}")
+    with open(os.path.join(trace_dir, traces[0])) as fh:
+        trace_kernels, busy = busy_share(json.load(fh))
+    missing = [k for k, pattern in CLI_TRACE_KERNELS.items()
+               if not any(re.search(pattern, name) for name in trace_kernels)]
+    if missing:
+        fail(f"cli_path (g): the trace shows no CUDA kernel of {missing}: {list(trace_kernels)}")
+    walls["phase_s"] = time.perf_counter() - t_phase
+    emit("cli_path", config=config, verified_runs=total, writes=CLI_WRITES, walls=walls,
+         cold_read={"describe_cluster": cluster, "domains": len(domains)},
+         verify=verify, scan=scan,
+         snapshot_sweep={k: sweep[k] for k in ("sweep", "entries", "bytes", "writes")},
+         resident={"passes": resident["passes"],
+                   "warm_hit_rate": warm["resident_served"] / max(1, warm["total"])},
+         fsck={"ok": fsck["ok"], "findings": len(fsck["findings"]),
+               "executions_rebuilt": fsck.get("executions_rebuilt")},
+         restart_verify=reverify, signals_read_back=len(signals),
+         profile={k: prof[k] for k in ("workflows", "events", "wall_s", "events_per_sec",
+                                       "platform", "legs")},
+         trace={"file": os.path.join("chiprun_out", "cli_trace", traces[0]),
+                "kernels": trace_kernels, "busy_share": busy},
+         launches_by_step={step: {k: n for k, n in d.items() if n} for step, d in by_step.items()},
+         launches=launches)
+    check_launches(launches, "cli_path", CLI_PATH_KERNELS, shapes)
     return launches
 
 
@@ -2810,7 +3127,7 @@ def visibility_path(args):
         os.environ["CADENCE_TPU_VISIBILITY_PARITY"] = "1"
         # the write burst, each write followed by a count (parity on)
         t1 = time.perf_counter()
-        for i, (wf, run) in enumerate(ties):
+        for i, (wf, run) in enumerate(ties[:VIS_CLOSES]):
             vis.record_closed("ties", wf, run, base + 10 ** 9, i % 3)
             if vis.count("ties", "CloseStatus = -1") != len(ties) - i - 1:
                 fail("visibility_path: a close was not read back")
@@ -2864,7 +3181,7 @@ def visibility_path(args):
          timed=timed, device_rows_per_s=records * len(queries) / dev_s,
          host_rows_per_s=records * len(queries) / host_s, page_walk_pages=-(-len(ties) // 100),
          burst_seconds={"record_closed": t_close, "upsert": t_upsert, "delete": t_delete},
-         writes=len(ties) + 1024 + 512, seconds=t_path,
+         writes=VIS_CLOSES + 1024 + 512, seconds=t_path,
          parity_divergence=stats["parity_divergence"], device_served=stats["device_served"],
          host_fallbacks=stats["host_fallbacks"], topk_escalations=stats["topk_escalations"],
          parity_checks=stats["parity_checks"], deltas_applied=stats["deltas_applied"],
@@ -2941,7 +3258,7 @@ def gen_kernels(args, corp, dev, records, err_i: int):
         None, err_i, ms_i, ms_ip, W * E * 144, gen_ops(lk),
         also_replaces=["cadence_tpu/ops/genkernel.py:135", "cadence_tpu/ops/genkernel.py:112"],
         hook="cadence_tpu_torch/csrc/genkernel.cuh", shape=[W, E], ptxas=regs_i,
-        timed=f"median of {REPS} single launches; plain: median of {PLAIN_REPS}"))
+        timed=f"median of {REPS} single launches; plain: one run after a warm-up"))
     emit("kernel_gen_lanes", workflows=W, events=E, lanes_bytes=W * E * 144, max_abs_err=err_i,
          oracle_sampled=len(orc), oracle_equal=len(orc) - len(parity), closed=W,
          ms=ms_i, plain_ms=ms_ip, bound_ms=W * E * 144 / HBM_BYTES_PER_S * 1e3, ptxas=regs_i)
@@ -3126,9 +3443,9 @@ C_SHAPES = (4096, 16384, 40960, 131072)
 #: the rows kernel D is launched with: verify_all's 4,096-key chunks and the
 #: main path's bulk
 D_SHAPES = (4096, 40960)
-#: verify_path's alterations: 64 live states of 24,576 (about 11 a 4,096
-#: chunk), half in a payload word and half in the current branch
-D_ALTERED = (64, 24576)
+#: verify_path's alterations: 64 live states of 8,192 (32 a 4,096 chunk),
+#: half in a payload word and half in the current branch
+D_ALTERED = (64, 8192)
 #: rows kernel B's fit epilogue (on a rung-1 state) and its counts epilogue
 #: are timed at, where kernels H and F were launched: the fit at serving's
 #: 8- and 32-row flushes, the resident pool's 64-row groups and a 4,096-row
@@ -3817,11 +4134,11 @@ def vis_delta(g, n: int, b: int, real: int, targets, dev):
 
 def vis_shapes(dev, timed) -> None:
     """Kernels J and L at the shapes visibility_path launches them with,
-    through `timed` (launch_shapes'): J over the view's 2^20-row capacity
-    (524,288 records and the ties domain of 4,096) for the burst's three
+    through `timed` (launch_shapes'): J over the view's 2^18-row capacity
+    (131,072 records and the ties domain of 4,096) for the burst's three
     plans (count) and bench.py's six queries (bitmap); L at the burst's
     delta (a 64-row bucket holding one changed row, the view's 10 columns),
-    and at 512 and 65,536 rows into 24 columns of 2^20 rows (scan_apply:
+    and at 512 and 65,536 rows into 24 columns of 2^18 rows (scan_apply:
     the kernel alone); and L through the view's own feed at FEED_SHAPES
     (feed_shape: the packed block's copy and the launch)."""
     import numpy as np
@@ -3939,7 +4256,7 @@ STAGING_SPIN_CYCLES = 4_000_000
 
 def vis_staging(dev, reps: int = REPS) -> dict:
     """The host cost of kernel J's and kernel L's feeds in the device view
-    at visibility_path's capacity (2^20 rows, the view's 10 columns, 4,096
+    at visibility_path's capacity (2^18 rows, the view's 10 columns, 4,096
     records): one drain's _sync_device_locked after a one-row change (the
     delta staged and kernel L launched), and one scan_count of the ties
     domain read back with int(). Each is timed behind a queued spin kernel
@@ -5104,16 +5421,20 @@ def main() -> int:
                    help="run the build and region_path, and stop")
     p.add_argument("--cluster-only", action="store_true",
                    help="run the build and cluster_path, and stop")
+    p.add_argument("--cli-only", action="store_true",
+                   help="run the build and cli_path over a WAL of CLI_SEED_WORKFLOWS seeded "
+                        "workflows (with --region-only: region_path, then cli_path over its "
+                        "crashed region's WAL, as the full run does), and stop")
     args = p.parse_args()
     full = not args.small
     config = "suites-8k" if full else "small"
     args.per_suite = 8192 if full else 512
-    args.overflow = 16384 if full else 512
+    args.overflow = 4096 if full else 512
     args.chains = 2048 if full else 128
     args.trees = 4096 if full else 256
-    args.lanes_w = 65536 if full else 2048
-    args.verify_per_suite = 2048 if full else 128
-    args.serving_per_suite = 1024 if full else 64
+    args.lanes_w = 32768 if full else 2048
+    args.verify_per_suite = 1024 if full else 128
+    args.serving_per_suite = 512 if full else 64
     args.lanes_e = 128
     args.ns_workflows = NS_WORKFLOWS if full else GEN_CHECK_W
     args.ns_events = NS_EVENTS if full else 200
@@ -5143,8 +5464,8 @@ def main() -> int:
     from cadence_tpu_torch.native import wirec as NW
     from cadence_tpu_torch.ops import _build, replay as R, wirec as WC
     from cadence_tpu_torch.ops.crc import crc32_launch, crc32_rows, crc32_rows_plain
-    from cadence_tpu_torch.ops.encode import (LANE_BRANCH, LANE_EVENT_ID, encode_corpus,
-                                              gather_subcorpus, to_wire32)
+    from cadence_tpu_torch.ops.encode import (LANE_BRANCH, LANE_EVENT_ID, gather_subcorpus,
+                                              to_wire32)
     from cadence_tpu_torch.ops.payload import (payload_launch, payload_rows, payload_rows_narrow,
                                                payload_rows_narrow_plain)
     from cadence_tpu_torch.ops.convert import task_log_to_numpy
@@ -5160,7 +5481,7 @@ def main() -> int:
     t_start = time.perf_counter()
     # host corpora first, in a pool of spawned workers (the Onebox makes its own)
     if not (args.visibility_only or args.onebox_only or args.region_only
-            or args.cluster_only):
+            or args.cluster_only or args.cli_only):
         corp = generate(args)
         histories, oracle = corp["histories"], corp["oracle"]
         emit("generate", workflows=len(histories), overflow=len(corp["overflow"]),
@@ -5181,7 +5502,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             print("ptxas:", line.strip(), flush=True)
     if args.shapes_only:
-        launch_shapes_phase(args, encode_corpus(histories), dev, corp["fuzz"])
+        launch_shapes_phase(args, corp["lanes"], dev, corp["fuzz"])
         replay_traps(dev)
         print(smi)
         return 0
@@ -5193,6 +5514,26 @@ def main() -> int:
         return 0
     if args.onebox_only:
         print(json.dumps({"launches": {"onebox_path": onebox_path(args)}}))
+        emit("launch_shapes_by_path", **SHAPES_BY_PATH)
+        print(smi)
+        return 0
+    if args.cli_only:
+        import tempfile
+
+        from cadence_tpu_torch.engine.crashsim import seed_workload
+
+        with tempfile.TemporaryDirectory(prefix="cli-") as workdir:
+            wal, paths = os.path.join(workdir, "cli.db"), {}
+            if args.region_only:  # the full run's input: region_path's crashed WAL
+                paths["region_path"] = region_path(args, keep_wal=wal)
+                config = "cli-region"
+            else:
+                t0 = time.perf_counter()
+                seed_workload(wal, CLI_SEED_WORKFLOWS, device=DEVICE)
+                emit("cli_seed", workflows=CLI_SEED_WORKFLOWS, seconds=time.perf_counter() - t0)
+                config = "cli-seeded"
+            paths["cli_path"] = cli_path(args, wal, config)
+        print(json.dumps({"launches": paths}))
         emit("launch_shapes_by_path", **SHAPES_BY_PATH)
         print(smi)
         return 0
@@ -5216,9 +5557,8 @@ def main() -> int:
         return 0
 
     # --- 2. the main path (suites-8k)
-    t0 = time.perf_counter()
-    events_np = encode_corpus(histories)          # also the comparison input
-    t_encode = time.perf_counter() - t0
+    events_np = corp["lanes"]                     # also the comparison input
+    t_encode = corp["encode_s"]
     wire_np = to_wire32(events_np)
     W, E = events_np.shape[:2]
     real = int((events_np[:, :, LANE_EVENT_ID] > 0).sum())
@@ -5279,7 +5619,8 @@ def main() -> int:
         fail("main path: device CRCs differ from zlib")
     check_launches(main_launches, "main path", MAIN_PATH_KERNELS)
     emit("main_path", config=config, workflows=W, max_events=E, real_events=real,
-         oracle_sampled=len(oracle), encode_s=t_encode, replay_corpus_s=t_corpus,
+         oracle_sampled=len(oracle), encode_s=t_encode, encode_s_from="the pool's tasks, summed",
+         replay_corpus_s=t_corpus,
          wire32_and_verify_s=t_wire, streamed_sharded_and_mesh_s=t_entry,
          streamed_chunk_events=32, sharded_stats=sharded_stats,
          corpus_mesh_chunks=m_report.chunks, launches=main_launches,
@@ -5336,8 +5677,9 @@ def main() -> int:
     launch = lambda run: run()  # noqa: E731
     ms_a = cuda_ms(launch, setup=lambda: R.replay_launch(fresh(), ev))
     ms_a32 = cuda_ms(launch, setup=lambda: R.replay_launch(fresh(), ev32, wire32=True))
-    ms_ap = cuda_ms(lambda s: R.replay_scan_plain(s, ev), 3, setup=fresh)
-    ms_ap32 = cuda_ms(lambda s: R.replay_scan_plain(s, ev32, wire32=True), 3, setup=fresh)
+    ms_ap = cuda_ms(lambda s: R.replay_scan_plain(s, ev), PLAIN_REPS, setup=fresh, warm=False)
+    ms_ap32 = cuda_ms(lambda s: R.replay_scan_plain(s, ev32, wire32=True), PLAIN_REPS,
+                      setup=fresh, warm=False)
     sb = state_bytes(s_k)
     records.append(kernel_record(
         "replay", "cadence_tpu_torch/csrc/replay_kernel.cuh", "cadence_tpu/ops/transitions.py:154",
@@ -5345,7 +5687,7 @@ def main() -> int:
         ms_wire32=ms_a32, plain_ms_wire32=ms_ap32,
         bound_ms_wire32=(ev32.numel() * 4 + sb) / HBM_BYTES_PER_S * 1e3,
         events_per_s=real / (ms_a / 1e3), events_per_s_wire32=real / (ms_a32 / 1e3),
-        timed=f"median of {REPS} single launches, each on a fresh state; plain: median of 3"))
+        timed=f"median of {REPS} single launches, each on a fresh state; plain: one run"))
     emit("kernel_replay", equal_states=66, max_abs_err=err_a, ms=ms_a, ms_wire32=ms_a32,
          plain_ms=ms_ap, events_per_s=real / (ms_a / 1e3), device=name, smi=smi)
 
@@ -5383,7 +5725,7 @@ def main() -> int:
     del s_tp, log_tp, pairs, s4, log4, s4p, log4p
     ms_t = cuda_ms(launch, setup=lambda: R.replay_tasks_launch(fresh(), fresh_log(), ev))
     ms_tp = cuda_ms(lambda a: R.replay_tasks_scan_plain(a[0], a[1], ev), PLAIN_REPS,
-                    setup=lambda: (fresh(), fresh_log()))
+                    setup=lambda: (fresh(), fresh_log()), warm=False)
     ms_fill = cuda_ms(lambda _: fresh_log(), inner=5)
     t_bytes, t_ops = task_bytes_ops(ev, log_t)
     log_bytes = sum(t.numel() * t.element_size() for t in log_t)
@@ -5396,7 +5738,7 @@ def main() -> int:
         transfer_entries=int(log_t.tr_count.sum()), timer_entries=int(log_t.tm_count.sum()),
         ptxas=regs, ptxas_no_tasks=ptxas_usage(_build.build_log, *A_INSTANCES["int64 staged"]),
         timed=f"median of {REPS} single launches, each on a fresh state and log; "
-              f"plain: median of {PLAIN_REPS}"))
+              "plain: one run"))
     emit("kernel_replay_tasks", equal_states=66, equal_log_tensors=12, wire32_equal=True,
          max_abs_err=err_t, ms=ms_t, no_tasks_ms=ms_a, plain_ms=ms_tp, init_task_log_ms=ms_fill,
          oracle_streams_equal=len(oracle), state_differs_from_kernel_a_in=sorted(differ),
@@ -5589,14 +5931,14 @@ def main() -> int:
     del carried
     ms_aw = cuda_ms(launch, setup=lambda: R.wirec_launch(fresh(), slab_d, bases_d, n_d, prof))
     ms_awp = cuda_ms(lambda s: R.wirec_scan_plain(s, slab_d, bases_d, n_d, prof), PLAIN_REPS,
-                     setup=fresh)
+                     setup=fresh, warm=False)
     wirec_in = slab_d.numel() + bases_d.numel() * 8 + n_d.numel() * 4
     records.append(kernel_record(
         "replay_wirec", "cadence_tpu_torch/csrc/replay_kernel.cuh", "cadence_tpu/ops/replay.py:121",
         None, err_aw, ms_aw, ms_awp, wirec_in + sb, replay_ops(ev) + decode_ops(prof, W * E),
         events_per_s=real / (ms_aw / 1e3), int64_ms=ms_a,
         timed=f"median of {REPS} single launches, each on a fresh state; "
-              f"plain: median of {PLAIN_REPS}"))
+              "plain: one run"))
     emit("kernel_replay_wirec", equal_states=66, max_abs_err=err_aw, ms=ms_aw, plain_ms=ms_awp,
          int64_ms=ms_a, events_per_s=real / (ms_aw / 1e3),
          slab_bytes_per_row=int(slab_d.shape[2]))
@@ -5674,7 +6016,7 @@ def main() -> int:
             n += 1
         return n
 
-    over_ev = encode_corpus(corp["overflow"])
+    over_ev = corp["overflow_lanes"]
     k, r = both(over_ev, "overflow suite")
     errs = k.error.cpu().numpy()
     n_or = against_oracle(r, errs, corp["overflow_oracle"], "overflow suite")
@@ -5883,11 +6225,20 @@ def main() -> int:
     # --- 9d. replication_apply: the standby's device apply behind its pump
     replication_launches = replication_apply(corp)
 
-    # --- 9e. region_path: the WAL, the warm failover and crash recovery
-    region_launches = region_path(args)
+    # --- 9e. region_path: the WAL, the warm failover and crash recovery;
+    # the crashed region's WAL is kept for cli_path
+    import tempfile
+
+    cli_dir = tempfile.TemporaryDirectory(prefix="cli-")
+    cli_wal = os.path.join(cli_dir.name, "region-active.db")
+    region_launches = region_path(args, keep_wal=cli_wal)
 
     # --- 9f. cluster_path: the wire cluster, every host's serving tier on the card
     cluster_launches = cluster_path(args)
+
+    # --- 9g. cli_path: the operator CLI over the crashed region's WAL
+    cli_launches = cli_path(args, cli_wal, "cli-region")
+    cli_dir.cleanup()
 
     # --- 10. kernel_vis: kernels J, K and L on the columnar table
     kernel_vis(args, dev, records)
@@ -5906,7 +6257,8 @@ def main() -> int:
              "fuzz_parity": fuzz_launches,
              "fuzz_scale": scale_launches, "migration_path": migration_launches,
              "replication_apply": replication_launches, "region_path": region_launches,
-             "cluster_path": cluster_launches, "visibility_path": visibility_launches}
+             "cluster_path": cluster_launches, "cli_path": cli_launches,
+             "visibility_path": visibility_launches}
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in paths.values())
         if rec["name"] == "payload":

@@ -27,7 +27,7 @@ Left out:
   device is the card; tests/test_torch_visibility_device.py holds it on
   the CPU);
 - tests/test_admin_cli.py's TestCLI, TestOpsVerbs and TestProfileVerb,
-  which wait for cli.py."""
+  the CLI's classes, which run in tests/test_torch_cli.py."""
 import numpy as np
 import pytest
 

@@ -19,8 +19,12 @@ def _python_sources():
 
 
 def _modules():
+    """Every module of the package but `__main__`, whose import runs the
+    CLI (tests/test_torch_cli.py runs it as `python -m`)."""
     for path in _python_sources():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        if rel.endswith(".__main__"):
+            continue
         yield rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
 
 
@@ -71,9 +75,9 @@ def test_source_imports_no_jax(path):
                                   "utils.hostprof", "utils.scrape", "models.deciders",
                                   "rpc.wire", "rpc.client", "rpc.storeserver", "rpc.server",
                                   "rpc.cluster", "loadgen.generator", "loadgen.scenarios",
-                                  "gen.cluster_chaos", "gen.interleave"])
+                                  "gen.cluster_chaos", "gen.interleave", "cli"])
 def test_the_walk_reaches_the_fuzz_and_cluster_modules(name):
     """The grammar, its shrinker, shard migration, the replication pump, the
-    Onebox's modules, the wire cluster, the load harness and the two chaos
-    harnesses are among the modules both tests above walk."""
+    Onebox's modules, the wire cluster, the load harness, the two chaos
+    harnesses and the CLI are among the modules both tests above walk."""
     assert f"cadence_tpu_torch.{name}" in set(_modules())

@@ -5,11 +5,8 @@ tier's parity under chaos, a reproducible fault-free soak) and the wire
 classes of tests/test_telemetry.py (the burn-rate evaluator of
 loadgen/slo.py, and the fleet telemetry plane over live hosts) run
 against the port, every cluster's processes on the CPU
-(tests/torch_parity.py ported_reference).
-
-Left out: tests/test_telemetry.py's
-TestFleetTelemetryWire.test_cli_admin_top_wire_arm, which waits for
-cli.py."""
+(tests/torch_parity.py ported_reference), with the CLI's wire arm of
+`admin top` against a live host."""
 import pytest
 
 from tests.torch_parity import ported_reference, reset_port_globals
@@ -22,9 +19,9 @@ def _fresh_port_globals():
     reset_port_globals()
 
 
-#: a method of the kept classes that waits for cli.py, which the port has
-#: not taken yet
-WAITS_FOR_CLI = ("TestFleetTelemetryWire.test_cli_admin_top_wire_arm",)
+#: methods of the kept classes that wait for cli.py: none since the port
+#: has it (test_cli_admin_top_wire_arm runs its wire arm)
+WAITS_FOR_CLI = ()
 
 globals().update(ported_reference("test_chaos_soak.py", tag="soak"))
 globals().update(ported_reference("test_telemetry.py",

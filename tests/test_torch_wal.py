@@ -13,10 +13,9 @@ Three kinds of test:
   RecoveryReport counts (the port on device="cpu"; tolerance 0);
 - the device rule: recover_stores with no device named means the card.
 
-Left out of tests/test_crashsim.py, waiting for cli.py:
-TestFsck.test_wal_clean_migrates_v1_prefix and TestFsck.test_cli_fsck_verb.
-Its TestSigkillAtCrashpoint runs a wire cluster's store server on the CPU
-(`launch(..., device="cpu")`)."""
+tests/test_crashsim.py's TestFsck drives the port's CLI (`wal clean`, `wal
+fsck`) on the CPU. Its TestSigkillAtCrashpoint runs a wire cluster's store
+server on the CPU (`launch(..., device="cpu")`)."""
 import dataclasses
 
 import pytest
@@ -38,9 +37,9 @@ def _fresh_port_globals():
 
 # -- the reference's own classes against the port ----------------------------
 
-#: methods of tests/test_crashsim.py that wait for cli.py
-WAITS_FOR_CLI = ("TestFsck.test_wal_clean_migrates_v1_prefix",
-                 "TestFsck.test_cli_fsck_verb")
+#: methods of tests/test_crashsim.py that wait for cli.py: none since the
+#: port has it (TestFsck's two CLI methods run on the CPU)
+WAITS_FOR_CLI = ()
 
 globals().update(ported_reference("test_durability.py", tag="durability"))
 globals().update(ported_reference("test_crashsim.py", tag="crashsim", leave_out=WAITS_FOR_CLI))

@@ -429,13 +429,19 @@ def host_kernel(tmp_dir, source: str, cut: str, harness: str, close: str = ""):
 #: the port's entry points besides Onebox that take a `device` (None: the
 #: card), which ported_reference calls with `device="cpu"`: the wire
 #: cluster's launchers hand it to every process they spawn, the scenarios
-#: to their clusters, boxes and closing verifies, and replay_to_payload is
-#: the kernel replay a test holds a replicated history to
+#: to their clusters, boxes and closing verifies, and replay_to_payload and
+#: replay_corpus are the kernel replays a test holds a history to
 ON_CPU = ("ReplicatedClusters", "recover_stores", "seed_workload", "CrashSim", "launch",
           "launch_group", "overload_scenario", "serving_scenario", "cluster_serving_scenario",
           "region_failover_scenario", "mixed_scenario", "visibility_scenario",
           "cluster_campaign_scenario", "run_campaign", "live_campaign_predicate",
-          "interleave_scenario", "replication_interleave_scenario", "replay_to_payload")
+          "interleave_scenario", "replication_interleave_scenario", "replay_to_payload",
+          "replay_corpus")
+
+#: the names the reference's tests give the CLI's `main` (which takes a
+#: `device` too): `cli_main` and `cli.main`, and `main` where the file
+#: imports it from the CLI under that name
+CLI_MAIN = ("cli_main", "cli.main")
 
 
 def _on_cpu(fn):
@@ -456,8 +462,9 @@ def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -
     `Test<Tag><Name>`, so that several ported files can share one test
     module's namespace. What is left out becomes blank lines, so each line
     keeps its number in tracebacks. The other entry points that reach a
-    device (ON_CPU) are called with `device="cpu"` too, and the file's own
-    module marks (`pytestmark`, e.g. slow) go with its kept classes.
+    device (ON_CPU, and the CLI's main by its CLI_MAIN names) are called
+    with `device="cpu"` too, and the file's own module marks
+    (`pytestmark`, e.g. slow) go with its kept classes.
     Returns the names to put in that namespace: the kept classes and the
     renamed fixtures."""
     import ast
@@ -495,6 +502,10 @@ def ported_reference(filename: str, classes=None, tag: str = "", leave_out=()) -
     body = re.sub(r"\bOnebox\((\)?)", lambda mt: 'Onebox(device="cpu")' if mt.group(1)
                   else 'Onebox(device="cpu", ', body)
     body = re.sub(rf"(?<![\w.])(?<!def )((?:\w+\.)*(?:{'|'.join(ON_CPU)}))\(", r"_on_cpu(\1)(",
+                  body)
+    cli_names = CLI_MAIN + (("main",) if re.search(r"from cadence_tpu\.cli import main\b(?! as)", src)
+                            else ())
+    body = re.sub(rf"(?<![\w.])(?<!def )({'|'.join(map(re.escape, cli_names))})\(", r"_on_cpu(\1)(",
                   body)
     for name in fixtures:
         # (a keyword argument of the same name, `name=value`, stays)
